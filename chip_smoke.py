@@ -10,8 +10,9 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
   2. each kernel against its plain PyTorch version on the card, exactly:
      K1 mont_mul (Fq and Fr, 2^20 lanes, with 0, 1 and p - 1), K2 ec_add_g1
      (2^18 lanes) and K3 ec_add_g2 (2^16 lanes) with identity operands,
-     P + P, P + (-P) and negated lanes; times per launch beside the plain
-     version's;
+     P + P, P + (-P), negated lanes and coordinates 0 and p - 1, and K2 and
+     K3 again at the MSM's small widths, 64 lanes and every pair of those as
+     2 lanes; times per launch beside the plain version's;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
      prove_batch at B = 2, both proofs verify and a tampered public fails;
   4. the full-width run: a synthetic R1CS of the full EmailVerifier's
@@ -41,12 +42,21 @@ BATCH = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_PER_CLK_PER_SM = 64  # 32-bit integer add/mul/logic results, sm_90
 
-# Per-lane work of each kernel, counted from ops/csrc: 32-bit integer
-# operations (a multiply-add counts one) and bytes read plus written.
+# Least work per lane of each kernel: 32-bit integer operations (a
+# multiply-add counts one) and bytes read plus written. The operations are
+# those of the field's arithmetic on 8 x 32-bit words, whatever layout a
+# kernel uses. A Montgomery product is 2 * 2 * 8 * 8 multiply-adds (the low
+# and high halves of a_i * b_j and of m_i * p_j), 8 quotient products m_i
+# and 16 operations for the final conditional subtraction: 280. A field
+# addition or subtraction is an 8-word carry chain, an 8-word chain with p
+# and 8 selects: 24. K2 (RCB Algorithm 7 on G1) does 12 products and 27
+# additions or subtractions; K3 (the same on G2, Karatsuba Fq2 products)
+# does 42 and 108; a negated addend costs one subtraction per Fq component
+# of y, on the negated lanes only. Conversions between the interchange
+# limbs and words are left out: they are one implementation's cost.
 L = 22
-OPS_MUL = L * (2 * L + 5) + L * 3 + L * 6  # CIOS rows, carries, cond. subtract
-OPS_ADD = L * 4 + L * 6
-OPS_SUB = L * 5 + L * 6
+OPS_MUL = 2 * 2 * 8 * 8 + 8 + 16
+OPS_ADD = 24
 KERNELS = {
     "mont_mul": {
         "source": "zkemail_tpu_torch/ops/csrc/mont_mul.cu",
@@ -56,16 +66,20 @@ KERNELS = {
     "ec_add_g1": {
         "source": "zkemail_tpu_torch/ops/csrc/ec_add_g1.cu",
         "replaces": "zkemail_tpu/ops/pallas_field.py:463",
-        "ops": 12 * OPS_MUL + 19 * OPS_ADD + 8 * OPS_SUB, "ops_neg": OPS_SUB,
+        "ops": 12 * OPS_MUL + 27 * OPS_ADD, "ops_neg": OPS_ADD,
         "bytes": 9 * L * 4 + 4,
     },
     "ec_add_g2": {
         "source": "zkemail_tpu_torch/ops/csrc/ec_add_g2.cu",
         "replaces": "zkemail_tpu/ops/pallas_field.py:722",
-        "ops": 42 * OPS_MUL + 50 * OPS_ADD + 58 * OPS_SUB, "ops_neg": 2 * OPS_SUB,
+        "ops": 42 * OPS_MUL + 108 * OPS_ADD, "ops_neg": 2 * OPS_ADD,
         "bytes": 18 * L * 4 + 4,
     },
 }
+# The curve kernels' lane counts on the main path besides the bulk: the
+# MSM's running sums (64 lanes) and its Horner steps (2 lanes).
+SMALL_WIDTHS = (64, 2)
+SPIN_CYCLES = 20_000_000  # about 10 ms: longer than queueing the timed calls
 
 
 def log(msg: str) -> None:
@@ -81,11 +95,14 @@ def nvidia_smi(query: str) -> str:
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` calls, by CUDA events."""
+    """Mean milliseconds per call over `reps` calls, by CUDA events. The
+    calls are queued behind a spin kernel, so that the events time the
+    device's work and not the host's launching of small kernels."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -184,7 +201,10 @@ def main() -> int:
     def curve_operands(kind: str, n: int):
         """Random points p, q = s * G, with q the identity on lanes i % 7 == 0,
         q = p on i % 5 == 0 (P + P), q = p negated on i % 11 == 0
-        (P + (-P)), and neg set on i % 3 == 0 and i % 11 == 0."""
+        (P + (-P)), neg set on i % 3 == 0 and i % 11 == 0, and on lanes
+        i % 13 == 6 the coordinates p.x = 0 and q = (p - 1, p - 1, p - 1),
+        not a point: the kernels must agree with the plain versions on any
+        field values."""
         ops = CT.FQ_OPS if kind == "g1" else CT.FQ2_OPS
         s1 = LB.from_mont(LB.FR_SPEC, rand_fe("Fr", n))
         s2 = LB.from_mont(LB.FR_SPEC, rand_fe("Fr", n))
@@ -194,28 +214,52 @@ def main() -> int:
         q = CT.ec_select(ops, i % 5 == 0, p, q)
         q = CT.ec_select(ops, i % 11 == 0, p, q)
         q = CT.ec_select(ops, i % 7 == 0, ident, q)
-        q = map_coords(q, lambda c: c.contiguous())
+        p, q = (map_coords(pt, lambda c: c.contiguous()) for pt in (p, q))
+        odd = i % 13 == 6
+        for c in coords({"x": p["x"]}):
+            c[:, odd] = 0
+        p_minus_1 = torch.tensor(F.to_limbs(F.Q - 1), dtype=torch.int32, device=dev)
+        for c in coords(q):
+            c[:, odd] = p_minus_1[:, None]
         neg = ((i % 3 == 0) | (i % 11 == 0)).to(torch.int32)
         return p, q, neg
 
     def coords(pt):
         return [c for v in pt.values() for c in (v if isinstance(v, tuple) else (v,))]
 
+    def lanes(pt, lo: int, hi: int):
+        return map_coords(pt, lambda c: c[:, lo:hi].contiguous())
+
+    def check(name, kern, plain, p, q, neg) -> int:
+        k, ref = kern(p, q, neg), plain(p, q, neg)
+        err = max(max_err(x, y) for x, y in zip(coords(k), coords(ref)))
+        if err:
+            raise AssertionError(f"{name} at {neg.numel()} lanes: kernel differs "
+                                 f"from plain (max {err})")
+        return err
+
     for name, kind, n, kern, plain in (
         ("ec_add_g1", "g1", 1 << 18, FK.ec_add_g1_flat, FK.ec_add_g1_plain),
         ("ec_add_g2", "g2", 1 << 16, FK.ec_add_g2_flat, FK.ec_add_g2_plain),
     ):
         p, q, neg = curve_operands(kind, n)
-        k = kern(p, q, neg)
-        ref = plain(p, q, neg)
-        err = max(max_err(x, y) for x, y in zip(coords(k), coords(ref)))
-        if err:
-            raise AssertionError(f"{name}: kernel differs from plain (max {err})")
+        err = check(name, kern, plain, p, q, neg)
         k_ms = time_ms(torch, lambda: kern(p, q, neg), 20)
         p_ms = time_ms(torch, lambda: plain(p, q, neg), 2)
         record(name, err, k_ms, p_ms, n, int(neg.sum()))
         log(f"  K {name} {n} lanes: equal; {k_ms:.4f} ms/launch, plain {p_ms:.3f} ms")
-    del p, q, neg, k, ref, a, b
+        width = SMALL_WIDTHS[0]
+        for w in SMALL_WIDTHS:
+            # every slice of w lanes of the first `width`: all edge lanes at w
+            for lo in range(0, width, w):
+                check(name, kern, plain, lanes(p, lo, lo + w), lanes(q, lo, lo + w),
+                      neg[lo : lo + w].contiguous())
+            ps, qs, ns = lanes(p, 0, w), lanes(q, 0, w), neg[:w].contiguous()
+            results[name][f"ms_{w}"] = time_ms(torch, lambda: kern(ps, qs, ns), 200)
+        log(f"  K {name} at " + ", ".join(
+            f"{w} lanes: equal; {results[name][f'ms_{w}']:.4f} ms/launch"
+            for w in SMALL_WIDTHS))
+    del p, q, neg, ps, qs, ns, k, ref, a, b
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f} s")
 
@@ -284,6 +328,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
+            **{f"ms_{w}": r.get(f"ms_{w}") for w in SMALL_WIDTHS},
         }
         for name, r in results.items()
     ]}

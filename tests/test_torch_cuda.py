@@ -39,21 +39,49 @@ def test_mont_mul_kernel_equals_plain(dev, field):
     assert torch.equal(out, FK.mont_mul_plain(field, a, b))
 
 
+def _components(pt: dict, group: str) -> list:
+    return [pt[k] for k in "xyz"] if group == "g1" else [c for k in "xyz" for c in pt[k]]
+
+
+def _curve_operands(dev, group, n, gen):
+    """Random coordinates p, q and neg (set on lanes i % 3 == 0), with the
+    lane i % 6 == 0 adding the identity, 1 adding to the identity, 2 adding
+    p = (0, ...) and q with every coordinate p - 1, 3 P + P and 4 P + (-P)."""
+    def coord():
+        return _rand(dev, n, gen) if group == "g1" else (_rand(dev, n, gen), _rand(dev, n, gen))
+
+    p = {k: coord() for k in "xyz"}
+    q = {k: coord() for k in "xyz"}
+    i = torch.arange(n, device=dev)
+    role = i % 6
+    col = lambda v: torch.tensor(F.to_limbs(v), dtype=torch.int32, device=dev)[:, None]
+    one, p_minus_1 = col(F.FQ.to_mont(1)), col(F.Q - 1)
+    ident = [0, one, 0] if group == "g1" else [0, 0, one, 0, 0, 0]
+    pc, qc = _components(p, group), _components(q, group)
+    for c, v in zip(qc, ident):
+        c[:, role == 0] = v
+    for c, v in zip(pc, ident):
+        c[:, role == 1] = v
+    for c in pc[: len(pc) // 3]:
+        c[:, role == 2] = 0
+    for c in qc:
+        c[:, role == 2] = p_minus_1
+    for a, b in zip(pc, qc):
+        b[:, (role == 3) | (role == 4)] = a[:, (role == 3) | (role == 4)]
+    neg = ((i % 3 == 0) & (role != 3)) | (role == 4)
+    return p, q, neg.to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 64, 1027])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_ec_add_kernels_equal_plain(dev, group):
+def test_ec_add_kernels_equal_plain(dev, group, n):
     gen = torch.Generator(device=dev).manual_seed(2)
-    n = 1027
-    if group == "g1":
-        p = {k: _rand(dev, n, gen) for k in "xyz"}
-        q = {k: _rand(dev, n, gen) for k in "xyz"}
-        kern, plain = FK.ec_add_g1_flat, FK.ec_add_g1_plain
-    else:
-        p = {k: (_rand(dev, n, gen), _rand(dev, n, gen)) for k in "xyz"}
-        q = {k: (_rand(dev, n, gen), _rand(dev, n, gen)) for k in "xyz"}
-        kern, plain = FK.ec_add_g2_flat, FK.ec_add_g2_plain
-    neg = (torch.arange(n, device=dev) % 3 == 0).to(torch.int32)
+    p, q, neg = _curve_operands(dev, group, n, gen)
+    kern, plain = {"g1": (FK.ec_add_g1_flat, FK.ec_add_g1_plain),
+                   "g2": (FK.ec_add_g2_flat, FK.ec_add_g2_plain)}[group]
+    name = f"ec_add_{group}"
+    before = FK.LAUNCHES[name]
     out, ref = kern(p, q, neg), plain(p, q, neg)
-    for k in "xyz":
-        pairs = zip(out[k], ref[k]) if group == "g2" else [(out[k], ref[k])]
-        for a, b in pairs:
-            assert torch.equal(a, b)
+    assert FK.LAUNCHES[name] == before + 1
+    for a, b in zip(_components(out, group), _components(ref, group)):
+        assert torch.equal(a, b)

@@ -14,6 +14,7 @@ from zkemail_tpu.core import limbs as JL
 from zkemail_tpu.ops import pallas_field as PF
 from zkemail_tpu_torch.core import field as F
 from zkemail_tpu_torch.core import limbs as LB
+from zkemail_tpu_torch.core.towers import XI
 from zkemail_tpu_torch.ops import field_kernels as FK
 
 torch.set_num_threads(1)
@@ -98,7 +99,8 @@ def test_limb_conversion_roundtrip_equals_jax():
 
 
 def test_header_constants_match_field():
-    """The moduli and G2 b3 constants written into ops/csrc/field.cuh."""
+    """The moduli written into ops/csrc/field.cuh (12-bit limbs), and the
+    plain versions' G2 b3 limbs."""
     text = (CSRC / "field.cuh").read_text()
 
     def arr(name):
@@ -109,10 +111,38 @@ def test_header_constants_match_field():
     assert arr("FR_P") == F.to_limbs(F.FR.p)
     assert int(re.search(r"FQ_N0INV = (\d+)", text).group(1)) == F.FQ.n0inv
     assert int(re.search(r"FR_N0INV = (\d+)", text).group(1)) == F.FR.n0inv
-    b3 = FK._g2_b3_limbs()
-    assert arr("G2_B3_C0") == list(b3[0]) and arr("G2_B3_C1") == list(b3[1])
     limbs = PF._g2_b3_mont_limbs()
-    assert tuple(map(tuple, limbs)) == b3
+    assert tuple(map(tuple, limbs)) == FK._g2_b3_limbs()
+
+
+def test_field32_constants_match_field():
+    """The constants of ops/csrc/field32.cuh (8 x 32-bit words, R' = 2^256)
+    against the port's field module and the JAX package's."""
+    text = (CSRC / "field32.cuh").read_text()
+
+    def words(name):
+        body = re.search(name + r"\[8\] = \{([^}]*)\}", text).group(1)
+        ws = [int(x, 16) for x in body.replace("\n", " ").split(",") if x.strip()]
+        assert len(ws) == 8
+        return sum(w << (32 * i) for i, w in enumerate(ws))
+
+    p_words = [int(re.search(rf'#define ZK_FQ_P{i} "(0x[0-9a-f]+)"', text).group(1), 16)
+               for i in range(8)]
+    assert all(w < 1 << 32 for w in p_words)
+    assert sum(w << (32 * i) for i, w in enumerate(p_words)) == F.FQ.p == JF.Q
+    np0 = int(re.search(r"FQ_NP0 = (0x[0-9a-f]+)u;", text).group(1), 16)
+    assert np0 == -pow(JF.Q, -1, 1 << 32) % (1 << 32)
+    assert np0 % (1 << 8) == -pow(F.Q, -1, 1 << 8) % (1 << 8)  # load_fq's factor
+    assert int(re.search(r"FQ_P7_PLUS_1 = (0x[0-9a-f]+)ull;", text).group(1), 16) == (
+        (F.Q >> 224) + 1)
+    # b3 in R' form from the port's towers, and from the JAX kernel's limbs
+    # (b3 * 2^264 mod p) times 2^-8
+    b3 = XI.inv() * 9
+    c0, c1 = words("G2_B3_R256_C0"), words("G2_B3_R256_C1")
+    assert (c0, c1) == tuple(int(c) * (1 << 256) % F.Q for c in (b3.c0, b3.c1))
+    jax_b3 = tuple(F.from_limbs(l) * pow(2, -8, JF.Q) % JF.Q for l in PF._g2_b3_mont_limbs())
+    assert (c0, c1) == jax_b3
+    assert words("G2_B3_R256_SUM") == (c0 + c1) % F.Q
 
 
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():

@@ -4,32 +4,31 @@
 // Replaces the Pallas kernel zkemail_tpu/ops/pallas_field.py::
 // _make_ec_add_kernel (pallas_call at pallas_field.py:463, math in
 // _ec_add_math, entry points ec_add_g1_flat and ec_add_g1). The TPU kernel
-// stacked the 12 Fq products into two waves of six on vregs; here one
-// thread owns one lane and runs the same 12 products one after another,
-// with the operation order of _ec_add_math so the output limbs agree.
+// stacked the 12 Fq products into two waves of six on vregs of 12-bit limbs;
+// here one thread owns one lane and runs the same field operations on 8 x
+// 32-bit words in registers (field32.cuh).
 //
-// Bound on the H100: per lane it reads 6 x 88 + 4 bytes, writes 3 x 88 and
-// does about 21k 32-bit integer operations (12 CIOS products and 27 field
-// additions and subtractions), so it is bound by the int32 rate, not by
-// memory. The field
-// operations are out-of-line calls (field.cuh) on operands in local memory:
-// a first version that is right; keeping them in registers is later work.
+// Bound on the H100: per lane it reads 6 x 88 + 4 bytes and writes 3 x 88;
+// 12 products and 27 additions or subtractions on 32-bit words are about 4k
+// integer operations, so the bytes and the int32 rate bound it about
+// equally. The design keeps every field element in registers (no local
+// memory), loads each operand where it is first used so that the inputs are
+// not all live at once, and converts between the interchange limbs and
+// words only at the boundary: 6 conversions in, 3 out.
 //
-// Layout: every coordinate is (22, n) int32 row-major in Montgomery form;
-// neg is (n,) int32, and lanes with neg != 0 add -q instead of q.
+// Layout: every coordinate is (22, n) int32 row-major in Montgomery form
+// (R = 2^264); neg is (n,) int32, and lanes with neg != 0 add -q instead of q.
 
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "field32.cuh"
 
 namespace zk {
 
-__device__ __forceinline__ void mul_b3_g1(const uint32_t* a, uint32_t* out) {
-  uint32_t a2[L], a4[L], a8[L];
-  fq_add(a, a, a2);
-  fq_add(a2, a2, a4);
-  fq_add(a4, a4, a8);
-  fq_add(a8, a, out);  // 9a = 8a + a
+__device__ __forceinline__ Fq mul_b3(const Fq& a) {  // 9a = 8a + a
+  const Fq a2 = add(a, a);
+  const Fq a4 = add(a2, a2);
+  return add(add(a4, a4), a);
 }
 
 __global__ void __launch_bounds__(128)
@@ -44,74 +43,27 @@ __global__ void __launch_bounds__(128)
                      int64_t n) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  uint32_t x1[L], y1[L], z1[L], x2[L], y2[L], z2[L];
-  load_fe(x1p, n, j, x1);
-  load_fe(y1p, n, j, y1);
-  load_fe(z1p, n, j, z1);
-  load_fe(x2p, n, j, x2);
-  load_fe(y2p, n, j, y2);
-  load_fe(z2p, n, j, z2);
-  if (negp[j] != 0) {  // p - y2; y2 = 0 stays 0 through the reduction
-    uint32_t zero[L], ny[L];
-#pragma unroll
-    for (int i = 0; i < L; ++i) zero[i] = 0;
-    fq_sub(zero, y2, ny);
-#pragma unroll
-    for (int i = 0; i < L; ++i) y2[i] = ny[i];
-  }
-
-  // wave 1: the six products of the input coordinates
-  uint32_t t0[L], t1[L], t2[L], m3[L], m4[L], m5[L], sa[L], sb[L];
-  fq_mul(x1, x2, t0);
-  fq_mul(y1, y2, t1);
-  fq_mul(z1, z2, t2);
-  fq_add(x1, y1, sa);
-  fq_add(x2, y2, sb);
-  fq_mul(sa, sb, m3);
-  fq_add(y1, z1, sa);
-  fq_add(y2, z2, sb);
-  fq_mul(sa, sb, m4);
-  fq_add(x1, z1, sa);
-  fq_add(x2, z2, sb);
-  fq_mul(sa, sb, m5);
-
-  // x1..z2 are dead from here on: reuse their storage
-  uint32_t* t3 = x1;
-  uint32_t* t4 = y1;
-  uint32_t* f5 = z1;
-  fq_sub(m3, t0, sa);
-  fq_sub(sa, t1, t3);  // X1Y2 + Y1X2
-  fq_sub(m4, t1, sa);
-  fq_sub(sa, t2, t4);  // Y1Z2 + Z1Y2
-  fq_sub(m5, t0, sa);
-  fq_sub(sa, t2, f5);  // X1Z2 + Z1X2
-  uint32_t* t0_3 = x2;
-  fq_add(t0, t0, sa);
-  fq_add(sa, t0, t0_3);  // 3 X1X2
-  uint32_t* t2_b3 = y2;
-  uint32_t* y3_b3 = z2;
-  mul_b3_g1(t2, t2_b3);
-  mul_b3_g1(f5, y3_b3);
-  uint32_t* z3a = m3;
-  uint32_t* t1m = m4;
-  fq_add(t1, t2_b3, z3a);
-  fq_sub(t1, t2_b3, t1m);
-
-  // wave 2
-  uint32_t a1[L], a2[L], a3[L], a4[L], a5[L], a6[L];
-  fq_mul(t4, y3_b3, a1);
-  fq_mul(t3, t1m, a2);
-  fq_mul(y3_b3, t0_3, a3);
-  fq_mul(t1m, z3a, a4);
-  fq_mul(t0_3, t3, a5);
-  fq_mul(z3a, t4, a6);
-  uint32_t r[L];
-  fq_sub(a2, a1, r);
-  store_fe(x3p, n, j, r);
-  fq_add(a4, a3, r);
-  store_fe(y3p, n, j, r);
-  fq_add(a6, a5, r);
-  store_fe(z3p, n, j, r);
+  const Fq x1 = load_fq(x1p, n, j);
+  const Fq x2 = load_fq(x2p, n, j);
+  const Fq t0 = mul(x1, x2);
+  const Fq y1 = load_fq(y1p, n, j);
+  Fq y2 = load_fq(y2p, n, j);
+  if (negp[j] != 0) y2 = neg(y2);
+  const Fq t1 = mul(y1, y2);
+  const Fq t3 = sub(sub(mul(add_lazy(x1, y1), add_lazy(x2, y2)), t0), t1);
+  const Fq z1 = load_fq(z1p, n, j);
+  const Fq z2 = load_fq(z2p, n, j);
+  const Fq t2 = mul(z1, z2);
+  const Fq t4 = sub(sub(mul(add_lazy(y1, z1), add_lazy(y2, z2)), t1), t2);
+  const Fq f5 = sub(sub(mul(add_lazy(x1, z1), add_lazy(x2, z2)), t0), t2);
+  const Fq t0_3 = add(add(t0, t0), t0);
+  const Fq t2_b3 = mul_b3(t2);
+  const Fq y3_b3 = mul_b3(f5);
+  const Fq z3a = add(t1, t2_b3);
+  const Fq t1m = sub(t1, t2_b3);
+  store_fq(x3p, n, j, sub(mul(t3, t1m), mul(t4, y3_b3)));
+  store_fq(y3p, n, j, add(mul(t1m, z3a), mul(y3_b3, t0_3)));
+  store_fq(z3p, n, j, add(mul(z3a, t4), mul(t0_3, t3)));
 }
 
 }  // namespace zk

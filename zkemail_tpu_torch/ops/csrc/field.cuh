@@ -1,18 +1,17 @@
 // BN254 field arithmetic on 22 x 12-bit limbs, one lane per thread.
 //
-// Shared by the three kernels of this directory (mont_mul.cu, ec_add_g1.cu,
-// ec_add_g2.cu). A field element is 22 little-endian 12-bit limbs, the layout
-// of the JAX package and of the port's tensors: in device memory limb i of
-// lane j sits at base[i * n + j], so a warp's loads of one limb are
-// coalesced. Every function here mirrors the limb arithmetic of
-// zkemail_tpu/ops/pallas_field.py (_cios_body, _addm, _subm) and of the
-// port's plain versions in ops/field_kernels.py, so the results agree limb
-// for limb.
+// The arithmetic of K1 (mont_mul.cu). A field element is 22 little-endian
+// 12-bit limbs, the layout of the JAX package and of the port's tensors: in
+// device memory limb i of lane j sits at base[i * n + j], so a warp's loads
+// of one limb are coalesced; the curve kernels read and write that layout
+// too, but compute on 32-bit words (field32.cuh). Every function here
+// mirrors the limb arithmetic of zkemail_tpu/ops/pallas_field.py
+// (_cios_body) and of the port's plain version in ops/field_kernels.py, so
+// the results agree limb for limb.
 //
 // Integer ranges: the CIOS accumulator stays below 2^31 (each of the 22
 // iterations adds two products below 2^24 per limb, plus shifted carries),
-// so it runs in uint32 with no overflow. Subtraction uses int32: its limbs
-// and carries may be negative, and >> on int32 is an arithmetic shift.
+// so it runs in uint32 with no overflow.
 #pragma once
 
 #include <cstdint>
@@ -34,15 +33,6 @@ static __constant__ uint32_t FR_P[L] = {
     1413, 385, 2920, 69, 2949, 41, 794, 737, 1255, 100, 3};
 constexpr uint32_t FQ_N0INV = 905;
 constexpr uint32_t FR_N0INV = 4095;
-
-// b3 = 3 * b' = 9 / (9 + u) of the G2 twist, as Montgomery-form Fq limbs
-// of its two Fq2 components.
-static __constant__ uint32_t G2_B3_C0[L] = {
-    2284, 3875, 3560, 3678, 232, 1245, 3291, 2889, 4006, 266, 3620,
-    656, 2784, 2734, 2481, 3318, 1952, 4054, 3407, 1646, 2030, 1};
-static __constant__ uint32_t G2_B3_C1[L] = {
-    2235, 2934, 901, 12, 348, 756, 1458, 2715, 4080, 2040, 3987,
-    1795, 1896, 3526, 3434, 759, 1645, 3984, 2178, 2437, 3515, 2};
 
 enum FieldId : int { FIELD_FQ = 0, FIELD_FR = 1 };
 
@@ -106,38 +96,6 @@ __device__ __forceinline__ void mont_mul_body(const uint32_t* a,
   cond_sub_p<F>(v, out);
 }
 
-// x + y mod p, canonical in and out. Mirrors pallas_field._addm.
-template <int F>
-__device__ __forceinline__ void add_body(const uint32_t* x, const uint32_t* y,
-                                         uint32_t* out) {
-  uint32_t v[L];
-  uint32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const uint32_t s = x[i] + y[i] + carry;
-    v[i] = s & MASK;
-    carry = s >> W;
-  }
-  cond_sub_p<F>(v, out);
-}
-
-// x - y mod p, canonical in and out: x - y + p with arithmetic-shift
-// carries that may be -1. Mirrors pallas_field._subm.
-template <int F>
-__device__ __forceinline__ void sub_body(const uint32_t* x, const uint32_t* y,
-                                         uint32_t* out) {
-  uint32_t v[L];
-  int32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int32_t s =
-        (int32_t)x[i] - (int32_t)y[i] + (int32_t)p_limb<F>(i) + carry;
-    v[i] = (uint32_t)(s & (int32_t)MASK);
-    carry = s >> W;
-  }
-  cond_sub_p<F>(v, out);
-}
-
 // Coalesced load and store of one field element of lane j of n lanes.
 __device__ __forceinline__ void load_fe(const int32_t* __restrict__ base,
                                         int64_t n, int64_t j, uint32_t* v) {
@@ -149,26 +107,6 @@ __device__ __forceinline__ void store_fe(int32_t* __restrict__ base, int64_t n,
                                          int64_t j, const uint32_t* v) {
 #pragma unroll
   for (int i = 0; i < L; ++i) base[i * n + j] = (int32_t)v[i];
-}
-
-// Out-of-line Fq operations for the curve kernels. Kept out of line so that
-// a curve addition compiles to 12 (G1) or 42 (G2) calls of one CIOS body
-// instead of that many inlined copies: the operands then live in the
-// thread's local memory (L1-cached) rather than in registers, which the
-// 255-register limit would not hold anyway.
-static __device__ __noinline__ void fq_mul(const uint32_t* a, const uint32_t* b,
-                                    uint32_t* out) {
-  mont_mul_body<FIELD_FQ>(a, b, out);
-}
-
-static __device__ __noinline__ void fq_add(const uint32_t* a, const uint32_t* b,
-                                    uint32_t* out) {
-  add_body<FIELD_FQ>(a, b, out);
-}
-
-static __device__ __noinline__ void fq_sub(const uint32_t* a, const uint32_t* b,
-                                    uint32_t* out) {
-  sub_body<FIELD_FQ>(a, b, out);
 }
 
 }  // namespace zk
