@@ -10,21 +10,34 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
   2. each kernel against its plain PyTorch version on the card, exactly:
      K1 mont_mul (Fq and Fr, 2^20 lanes, with 0, 1 and p - 1), K2 ec_add_g1
      (2^18 lanes) and K3 ec_add_g2 (2^16 lanes) with identity operands,
-     P + P, P + (-P), negated lanes and coordinates 0 and p - 1, and K2 and
-     K3 again at the MSM's small widths, 64 lanes and every pair of those as
-     2 lanes; times per launch beside the plain version's;
+     P + P, P + (-P), negated lanes and coordinates 0 and p - 1; K2 and K3
+     again at the widths the two MSM routes launch them at (the sort
+     route's level-1 scans of the full-width h and dense b2 MSMs, its
+     threshold terms, its per-row final scans, the bucket route's running
+     sums and both routes' Horner steps), the widths past the bulk one
+     checked against the plain version slice by slice; times per launch
+     beside the plain version's;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
-     prove_batch at B = 2, both proofs verify and a tampered public fails;
+     two prove_batch calls at B = 2 on one key with witnesses from two
+     seeds (each signal MSM's outcome under the signal plan: hit, or miss),
+     all proofs verify and a tampered public fails; on the card, a stale
+     plan is refused by both pruned MSMs, the b2 MSM's dense fallback gives
+     the bucket route's b2, and a prove under a stale plan verifies;
   4. the full-width run: a synthetic R1CS of the full EmailVerifier's
      dimensions (1,351,641 constraints, 1,310,234 signals, 2^21 domain),
-     setup on the card, prove_batch at B = 2 with its stage timers, both
-     proofs verify and a tampered public fails; the kernel launch counts of
-     this phase, each of which must be non-zero.
+     setup on the card, prove_batch at B = 2 (the sort route), then the
+     same witnesses on the bucket route (scripts/msm_routes.py::
+     bucket_points, every MSM through msm_multi) blinded under the same
+     rng: the proofs verify, a tampered public fails and the two routes'
+     proofs are identical; both routes' stage timers and kernel launch
+     counts, each count of the sort route non-zero; the b2 MSM once more
+     by msm_bitserial, equal to the pruned sort result; the level-1
+     additions of the signal MSMs, dense and pruned.
 
-It then prints one JSON line with each kernel's numbers, the card's name and
-power limit, and last {"ok": true, "device": {...}}. Any failure is an
-uncaught exception and a non-zero exit; without a CUDA device it exits 1
-before printing any result.
+It then prints one JSON line with each kernel's numbers (launches: the sort
+route's prove), the card's name and power limit, and last {"ok": true,
+"device": {...}}. Any failure is an uncaught exception and a non-zero exit;
+without a CUDA device it exits 1 before printing any result.
 """
 
 from __future__ import annotations
@@ -76,9 +89,7 @@ KERNELS = {
         "bytes": 18 * L * 4 + 4,
     },
 }
-# The curve kernels' lane counts on the main path besides the bulk: the
-# MSM's running sums (64 lanes) and its Horner steps (2 lanes).
-SMALL_WIDTHS = (64, 2)
+H_POINTS = 1 << 21  # points of the full-width h query: the 2^21 domain
 SPIN_CYCLES = 20_000_000  # about 10 ms: longer than queueing the timed calls
 
 
@@ -122,10 +133,13 @@ def main() -> int:
     from zkemail_tpu_torch.core import limbs as LB
     from zkemail_tpu_torch.ops import field_kernels as FK
     from zkemail_tpu_torch.ops import kernel_build
-    from zkemail_tpu_torch.ops.msm import fixed_base_batch, map_coords
+    from zkemail_tpu_torch.ops import msm_sort as MS
+    from zkemail_tpu_torch.ops.msm import fixed_base_batch, map_coords, msm_multi
+    from zkemail_tpu_torch.prover import groth16 as G
     from zkemail_tpu_torch.prover.containers import verify
     from zkemail_tpu_torch.prover.groth16 import prove_batch
     from zkemail_tpu_torch.prover.setup import groth16_setup
+    from zkemail_tpu_torch.scripts.msm_routes import bucket_points
     from zkemail_tpu_torch.scripts.synthetic_r1cs import make_circuit
 
     dev = torch.device("cuda")
@@ -238,6 +252,34 @@ def main() -> int:
                                  f"from plain (max {err})")
         return err
 
+    # The widths K2 and K3 run at on the MSM routes besides the bulk: the
+    # sort route's level-1 scans (rows = B * windows, times blocks of K
+    # points) of the h MSM and of the dense b2 fallback, its threshold terms
+    # (rows x 2^(c-1)), the bucket route's running sums (64), the sort
+    # route's per-row final scans (rows) and both routes' Horner steps (2).
+    rows = BATCH * MS.n_windows_for(MS.C_BITS_SORT)
+
+    def level1(n_points: int) -> int:
+        return rows * -(-n_points // MS.K_BLOCK)
+
+    route_widths = {
+        "ec_add_g1": (level1(H_POINTS), rows << (MS.C_BITS_SORT - 1), 64, rows, 2),
+        "ec_add_g2": (level1(FULL640["n_signals"]), 64, rows, 2),
+    }
+
+    def check_sliced(name, kern, plain, p, q, neg, chunk: int) -> None:
+        """The kernel over all lanes against the plain version slice by slice
+        (the plain version is lane-wise; it would not fit at once)."""
+        k = kern(p, q, neg)
+        n = neg.numel()
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            ref = plain(lanes(p, lo, hi), lanes(q, lo, hi), neg[lo:hi].contiguous())
+            err = max(max_err(x[:, lo:hi], y) for x, y in zip(coords(k), coords(ref)))
+            if err:
+                raise AssertionError(f"{name} at {n} lanes, lanes {lo}..{hi}: kernel "
+                                     f"differs from plain (max {err})")
+
     for name, kind, n, kern, plain in (
         ("ec_add_g1", "g1", 1 << 18, FK.ec_add_g1_flat, FK.ec_add_g1_plain),
         ("ec_add_g2", "g2", 1 << 16, FK.ec_add_g2_flat, FK.ec_add_g2_plain),
@@ -248,36 +290,54 @@ def main() -> int:
         p_ms = time_ms(torch, lambda: plain(p, q, neg), 2)
         record(name, err, k_ms, p_ms, n, int(neg.sum()))
         log(f"  K {name} {n} lanes: equal; {k_ms:.4f} ms/launch, plain {p_ms:.3f} ms")
-        width = SMALL_WIDTHS[0]
-        for w in SMALL_WIDTHS:
-            # every slice of w lanes of the first `width`: all edge lanes at w
-            for lo in range(0, width, w):
-                check(name, kern, plain, lanes(p, lo, lo + w), lanes(q, lo, lo + w),
-                      neg[lo : lo + w].contiguous())
-            ps, qs, ns = lanes(p, 0, w), lanes(q, 0, w), neg[:w].contiguous()
-            results[name][f"ms_{w}"] = time_ms(torch, lambda: kern(ps, qs, ns), 200)
+        for w in route_widths[name]:
+            if w > n:
+                ps, qs, ns = curve_operands(kind, w)
+                check_sliced(name, kern, plain, ps, qs, ns, n)
+                reps = 5
+            else:
+                # every slice of w lanes of the first max(w, 64): all edge
+                # lanes at the narrow widths
+                for lo in range(0, max(w, 64), w):
+                    check(name, kern, plain, lanes(p, lo, lo + w), lanes(q, lo, lo + w),
+                          neg[lo : lo + w].contiguous())
+                ps, qs, ns = lanes(p, 0, w), lanes(q, 0, w), neg[:w].contiguous()
+                reps = 200 if w <= 64 else 20
+            results[name][f"ms_{w}"] = time_ms(torch, lambda: kern(ps, qs, ns), reps)
+            del ps, qs, ns
+            torch.cuda.empty_cache()
         log(f"  K {name} at " + ", ".join(
             f"{w} lanes: equal; {results[name][f'ms_{w}']:.4f} ms/launch"
-            for w in SMALL_WIDTHS))
-    del p, q, neg, ps, qs, ns, k, ref, a, b
+            for w in route_widths[name]))
+    del p, q, neg, k, ref, a, b
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f} s")
 
-    def prove_and_verify(dims: dict, label: str, timers=None):
+    def make(dims: dict):
         t = time.time()
         circ = make_circuit(dims["n_constraints"], dims["n_signals"], seed=1)
-        w = circ.witness(BATCH, seed=2)
         t_gen = time.time() - t
         t = time.time()
+        FK.reset_launches()
         pk = groth16_setup(circ.r1cs, seed=3, device=dev)
         torch.cuda.synchronize()
-        t_setup = time.time() - t
-        setup_launches = dict(FK.LAUNCHES)
+        return circ, pk, {"gen_s": t_gen, "setup_s": time.time() - t,
+                          "setup_launches": dict(FK.LAUNCHES)}
+
+    def prove_checked(pk, circ, w, label: str):
+        """prove_batch under random.Random(4), its proofs checked. Returns
+        the proofs as comparable tuples, the stage timers and the prove's
+        wall time."""
+        timers = {}
         t = time.time()
         proofs = prove_batch(pk, circ.r1cs, w, rng=random.Random(4), timers=timers,
                              device=dev)
         t_prove = time.time() - t
-        t = time.time()
+        return checked(pk, circ, proofs, label), timers, t_prove
+
+    def checked(pk, circ, proofs, label: str):
+        """Every proof verifies and a tampered public is refused. Returns
+        the proofs as comparable tuples."""
         for proof, publics in proofs:
             if len(publics) != circ.r1cs.n_public:
                 raise AssertionError(f"{label}: {len(publics)} publics")
@@ -286,33 +346,102 @@ def main() -> int:
             bad = [(publics[0] + 1) % F.R] + publics[1:]
             if verify(pk.vk, proof, bad):
                 raise AssertionError(f"{label}: a tampered public verifies")
-        t_verify = time.time() - t
-        return pk, {"gen_s": t_gen, "setup_s": t_setup, "prove_s": t_prove,
-                    "verify_s": t_verify, "setup_launches": setup_launches}
+        return [(pr.a, pr.b, pr.c, tuple(pub)) for pr, pub in proofs]
+
+    def affine_equal(ops, x, y) -> bool:
+        ax, ay = CT.ec_to_affine(ops, x), CT.ec_to_affine(ops, y)
+        return all(torch.equal(u, v) for k in ("x", "y", "inf")
+                   for u, v in zip(coords({k: ax[k]}), coords({k: ay[k]})))
+
+    def stale_plan(pk, w_t):
+        """Replace the key's signal plan by one built from an all-zero
+        batch: every prefix 0, so any nonzero digit misses it."""
+        pk.cache.pop("signal_plan", None)
+        return G._signal_plan(pk, torch.zeros_like(w_t))
 
     # -- 3. small end to end --------------------------------------------------
     t0 = time.time()
-    pk, ts = prove_and_verify(SMALL, "small")
-    log(f"phase 3 small e2e (2^{pk.domain_log2} domain, B={BATCH}): proofs verify, "
-        f"tampered public refused; {json.dumps(ts)}; {time.time() - t0:.1f} s")
-    del pk
+    circ, pk, ts = make(SMALL)
+    for seed in (2, 5):
+        _, timers, t_prove = prove_checked(pk, circ, circ.witness(BATCH, seed=seed),
+                                           f"small, witness seed {seed}")
+        log(f"  witness seed {seed}: proofs verify, tampered public refused; plan "
+            f"{json.dumps(timers['plan'])}; prove {t_prove:.2f} s")
+    w = circ.witness(BATCH, seed=5)
+    w_t = LB.to_device(w, dev).movedim(2, 1)
+    perm, prefixes, queries = stale_plan(pk, w_t)
+    if MS.msm_sorted_pruned(CT.FQ_OPS, queries["a"], w_t, perm, prefixes) is not None:
+        raise AssertionError("msm_sorted_pruned took a batch past its plan")
+    if MS.msm_bitserial(CT.FQ2_OPS, queries["b2"], w_t, perm, prefixes) is not None:
+        raise AssertionError("msm_bitserial took a batch past its plan")
+    b2, outcome = G._msm_signal_call(pk, "b2", w_t, w_t)
+    if outcome != "miss" or not affine_equal(
+            CT.FQ2_OPS, b2, msm_multi(CT.FQ2_OPS, pk.b2_query, w_t)):
+        raise AssertionError(f"b2 dense fallback: {outcome}, or differs from bucket b2")
+    stale_plan(pk, w_t)
+    _, timers, _ = prove_checked(pk, circ, w, "small, stale plan")
+    if timers["plan"]["a"] != "miss":
+        raise AssertionError(f"stale plan not missed: {timers['plan']}")
+    log(f"phase 3 small e2e (2^{pk.domain_log2} domain, B={BATCH}): stale plan "
+        f"refused by both pruned MSMs; b2 dense fallback equals the bucket b2; "
+        f"stale-plan prove {json.dumps(timers['plan'])} verifies; {json.dumps(ts)}; "
+        f"{time.time() - t0:.1f} s")
+    del pk, queries
 
     # -- 4. full width ---------------------------------------------------------
     t0 = time.time()
+    circ, pk, ts = make(FULL640)
+    w = circ.witness(BATCH, seed=2)
     torch.cuda.reset_peak_memory_stats()
-    timers = {}
     FK.reset_launches()
-    pk, ts = prove_and_verify(FULL640, "full", timers)
+    sort_proofs, sort_timers, t_sort = prove_checked(pk, circ, w, "full, sort")
     launches = dict(FK.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"phase 4 full width (2^{pk.domain_log2} domain, "
-        f"{FULL640['n_signals']} signals, B={BATCH}): proofs verify, tampered "
-        f"public refused; {json.dumps(ts)}; prove timers {json.dumps(timers)}; "
-        f"launches {json.dumps(launches)}; peak {peak_gb:.1f} GB; "
-        f"{time.time() - t0:.1f} s")
+    log(f"phase 4 full width (2^{pk.domain_log2} domain, {FULL640['n_signals']} "
+        f"signals, B={BATCH}): {json.dumps(ts)}")
+    log(f"  sort route (prove_batch): proofs verify, tampered public refused; prove "
+        f"{t_sort:.2f} s; timers {json.dumps(sort_timers)}; launches "
+        f"{json.dumps(launches)}; peak {peak_gb:.1f} GB")
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the sort route: {missing}")
+
+    perm, prefixes, queries = pk.cache["signal_plan"]
+    n_sig = FULL640["n_signals"]
+    dense_adds = BATCH * len(prefixes) * n_sig
+    pruned_adds = BATCH * sum(prefixes)
+    log(f"  signal plan: prefixes {list(prefixes)}; level-1 lane-adds per signal "
+        f"MSM dense {dense_adds}, pruned {pruned_adds} ({pruned_adds / dense_adds:.4f})")
+    w_t = LB.to_device(w, dev).movedim(2, 1)
+    t = time.time()
+    b2_sort = MS.msm_sorted_pruned(CT.FQ2_OPS, queries["b2"], w_t, perm, prefixes)
+    torch.cuda.synchronize()
+    t_b2_sort = time.time() - t
+    t = time.time()
+    b2_bits = MS.msm_bitserial(CT.FQ2_OPS, queries["b2"], w_t, perm, prefixes)
+    torch.cuda.synchronize()
+    t_b2_bits = time.time() - t
+    if not affine_equal(CT.FQ2_OPS, b2_sort, b2_bits):
+        raise AssertionError("msm_bitserial b2 differs from msm_sorted_pruned b2")
+    log(f"  b2 on the permuted query: msm_bitserial equals msm_sorted_pruned; "
+        f"{t_b2_bits:.3f} s against {t_b2_sort:.3f} s")
+    del b2_sort, b2_bits, queries, w_t
+
+    FK.reset_launches()
+    bucket_timers = {}
+    t = time.time()
+    w_dev = LB.to_device(w, dev)
+    points = bucket_points(pk, circ.r1cs, w_dev, bucket_timers)
+    bucket_proofs = G.blind(pk, points, w_dev, random.Random(4))
+    t_bucket = time.time() - t
+    bucket_launches = dict(FK.LAUNCHES)
+    bucket_proofs = checked(pk, circ, bucket_proofs, "full, bucket")
+    del points, w_dev
+    if bucket_proofs != sort_proofs:
+        raise AssertionError("the bucket route's proofs differ from the sort route's")
+    log(f"  bucket route: proofs verify and equal the sort route's; prove "
+        f"{t_bucket:.2f} s; timers {json.dumps(bucket_timers)}; launches "
+        f"{json.dumps(bucket_launches)}; phase {time.time() - t0:.1f} s")
 
     # -- 5. results ------------------------------------------------------------
     line = {"kernels": [
@@ -328,7 +457,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
-            **{f"ms_{w}": r.get(f"ms_{w}") for w in SMALL_WIDTHS},
+            "launches_bucket": bucket_launches[name],
+            **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},
         }
         for name, r in results.items()
     ]}

@@ -84,7 +84,11 @@ def test_curve_ops_equal_jax(group):
     p, q = _jax_points(group, pa), _jax_points(group, pb)
     jops, tops = (CJ.FQ_OPS, CT.FQ_OPS) if group == "g1" else (CJ.FQ2_OPS, CT.FQ2_OPS)
     tp, tq = _to_torch(p), _to_torch(q)
-    _equal(CT.ec_double(tops, tp), CJ.ec_double(jops, p))
+    # the doubling of the MSMs' Horner loops is the complete addition P + P
+    dbl = CT.ec_to_affine(tops, CT.ec_add(tops, tp, tp))
+    jdbl = CJ.ec_to_affine(jops, CJ.ec_double(jops, p))
+    _equal({"x": dbl["x"], "y": dbl["y"], "z": dbl["x"]},
+           {"x": jdbl["x"], "y": jdbl["y"], "z": jdbl["x"]})
     _equal(CT.ec_add_signed(tops, tp, tq, torch.from_numpy(neg)),
            CJ.ec_add_signed(jops, p, q, jnp.asarray(neg)))
     _equal(CT.ec_neg(tops, tp), CJ.ec_neg(jops, p))
@@ -103,7 +107,7 @@ def test_broadcast_add_and_identity():
     assert (aff_o["x"] == aff_p["x"]).all() and (aff_o["y"] == aff_p["y"]).all()
     pp = {k: v.reshape(22, 2, 3) for k, v in p.items()}
     out2 = CT.ec_add(CT.FQ_OPS, pp, pp)
-    dbl = CT.ec_double(CT.FQ_OPS, p)
+    dbl = CT.ec_add(CT.FQ_OPS, p, p)
     aff_a = CT.ec_to_affine(CT.FQ_OPS, {k: v.reshape(22, 6) for k, v in out2.items()})
     aff_b = CT.ec_to_affine(CT.FQ_OPS, dbl)
     assert (aff_a["x"] == aff_b["x"]).all() and (aff_a["y"] == aff_b["y"]).all()
@@ -115,8 +119,5 @@ def test_fq2_inverse_and_b3_equal_jax():
     tp = _to_torch(p)
     inv = CT.FQ2_OPS.inv(tp["x"])
     jinv = CJ.FQ2_OPS.inv(p["x"])
-    b3 = CT.FQ2_OPS.mul_b3(tp["y"])
-    jb3 = CJ.FQ2_OPS.mul_b3(p["y"])
     for c in (0, 1):
         assert (inv[c].numpy() == np.asarray(jinv[c])).all()
-        assert (b3[c].numpy() == np.asarray(jb3[c])).all()

@@ -65,7 +65,7 @@ def test_synthetic_setup_prove_batch_verify():
     proofs = prove_batch(pk, cc, circ.witness(2, seed=3), rng=random.Random(1),
                          timers=timers, device="cpu")
     assert set(timers) == {"h_stage_s", "msm_h_s", "msm_a_s", "msm_b2_s",
-                           "msm_b1_s", "msm_c_s"}
+                           "msm_b1_s", "msm_c_s", "plan"}
     for proof, publics in proofs:
         assert len(publics) == 3
         assert verify(pk.vk, proof, publics)

@@ -1,6 +1,7 @@
 """Port MSMs (zkemail_tpu_torch.ops.msm) against the JAX package on the CPU:
-the batched bucket MSM (B = 2, one scalar vector all zero, n % 16 != 0) and
-the fixed-base multiplication of the setup on G1 and G2."""
+the signed digits at the bucket route's c = 8 and the sort route's wider
+windows, the batched bucket MSM (B = 2, one scalar vector all zero,
+n % 16 != 0) and the fixed-base multiplication of the setup on G1 and G2."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -43,6 +44,21 @@ def test_signed_digits_equal_jax():
     assert (mag.numpy() == np.asarray(jmag)).all() and (neg.numpy() == np.asarray(jneg)).all()
     d = TM.extract_digits_unsigned(torch.from_numpy(s))
     assert (d.numpy() == np.asarray(JM.extract_digits_unsigned(jnp.asarray(s)))).all()
+
+
+@pytest.mark.parametrize("c_bits", [8, 12, 13, 16])
+def test_signed_digits_wide_windows_equal_jax(c_bits):
+    """The digits of the sort route's windows (c = 13 by default): equal to
+    the JAX package's and reconstructing the scalar."""
+    nw = -(-254 // c_bits)
+    vals = _scalars(6, 2) + [0, 1, JL.FR_SPEC.p - 1, 1 << c_bits, (1 << (c_bits - 1)) + 1]
+    s = JL.ints_to_limbs(np.array(vals, dtype=object))
+    mag, neg = TM.extract_signed_digits(torch.from_numpy(s), c_bits, nw)
+    jmag, jneg = JM.extract_signed_digits(jnp.asarray(s), c_bits, nw)
+    assert (mag.numpy() == np.asarray(jmag)).all() and (neg.numpy() == np.asarray(jneg)).all()
+    d = (1 - 2 * neg.numpy().astype(np.int64)) * mag.numpy().astype(np.int64)
+    for i, v in enumerate(vals):
+        assert sum(int(d[k, i]) << (c_bits * k) for k in range(nw)) == v
 
 
 def test_msm_multi_equals_jax_and_host():

@@ -1,7 +1,7 @@
 """Batched BN254 point arithmetic on PyTorch tensors — complete formulas.
 
 The port of ``zkemail_tpu/core/curve_jax.py``: Renes–Costello–Batina
-complete projective addition for a = 0 curves (Alg. 7/9), so a batch of
+complete projective addition for a = 0 curves (Alg. 7), so a batch of
 point operations runs with identity and doubling handled uniformly.
 
 Points are dicts {x, y, z} of field coordinates; a coordinate is an (L, ...)
@@ -20,7 +20,6 @@ import torch
 from ..ops import field_kernels as FK
 from . import field as F
 from . import limbs as LB
-from .towers import XI
 
 L = F.LIMBS
 
@@ -34,18 +33,6 @@ class FqOps:
     def mul(self, a, b):
         return LB.mont_mul(self.fs, a, b)
 
-    def mul_pack(self, pairs):
-        """Independent products as ONE Montgomery multiply over the
-        stacked pairs."""
-        shape = None
-        for a, b in pairs:
-            s = torch.broadcast_shapes(a.shape, b.shape)
-            shape = s if shape is None else torch.broadcast_shapes(shape, s)
-        a_st = torch.stack([a.expand(shape) for a, _ in pairs], dim=1)
-        b_st = torch.stack([b.expand(shape) for _, b in pairs], dim=1)
-        out = LB.mont_mul(self.fs, a_st, b_st)
-        return [out[:, i] for i in range(len(pairs))]
-
     def add(self, a, b):
         return LB.add(self.fs, a, b)
 
@@ -54,13 +41,6 @@ class FqOps:
 
     def neg(self, a):
         return LB.neg(self.fs, a)
-
-    def mul_b3(self, a):
-        # 3b = 9 for y^2 = x^3 + 3:  9a = 8a + a
-        a2 = self.add(a, a)
-        a4 = self.add(a2, a2)
-        a8 = self.add(a4, a4)
-        return self.add(a8, a)
 
     def zero(self, shape, device):
         return LB.zeros(shape, device)
@@ -110,28 +90,6 @@ class Fq2Ops:
         c1 = LB.sub(self.fs, LB.sub(self.fs, s, t0), t1)
         return (c0, c1)
 
-    def mul_pack(self, pairs):
-        """Karatsuba-batched Fq2 products: one Fq multiply for all pairs."""
-        shape = None
-        for (a0, _), (b0, _) in pairs:
-            s = torch.broadcast_shapes(a0.shape, b0.shape)
-            shape = s if shape is None else torch.broadcast_shapes(shape, s)
-        fq_pairs = []
-        for (a0, a1), (b0, b1) in pairs:
-            sa = LB.add(self.fs, a0, a1)
-            sb = LB.add(self.fs, b0, b1)
-            fq_pairs += [(a0, b0), (a1, b1), (sa, sb)]
-        a_st = torch.stack([p[0].expand(shape) for p in fq_pairs], dim=1)
-        b_st = torch.stack([p[1].expand(shape) for p in fq_pairs], dim=1)
-        out = LB.mont_mul(self.fs, a_st, b_st)
-        res = []
-        for i in range(len(pairs)):
-            t0, t1, s = out[:, 3 * i], out[:, 3 * i + 1], out[:, 3 * i + 2]
-            c0 = LB.sub(self.fs, t0, t1)
-            c1 = LB.sub(self.fs, LB.sub(self.fs, s, t0), t1)
-            res.append((c0, c1))
-        return res
-
     def add(self, a, b):
         return (LB.add(self.fs, a[0], b[0]), LB.add(self.fs, a[1], b[1]))
 
@@ -140,21 +98,6 @@ class Fq2Ops:
 
     def neg(self, a):
         return (LB.neg(self.fs, a[0]), LB.neg(self.fs, a[1]))
-
-    @staticmethod
-    def b3_const():
-        """3 * b2 = 9/(9+u), the twist's b3 as an Fq2 pair of ints."""
-        b3 = XI.inv() * 9
-        return (b3.c0, b3.c1)
-
-    def mul_b3(self, a):
-        k0, k1 = self.b3_const()
-        nd = a[0].dim()
-        c = tuple(
-            LB.constant(self.fs, k, (), a[0].device).reshape((L,) + (1,) * (nd - 1))
-            for k in (k0, k1)
-        )
-        return self.mul(a, c)
 
     def zero(self, shape, device):
         return (LB.zeros(shape, device), LB.zeros(shape, device))
@@ -269,25 +212,6 @@ def ec_add_signed(ops, p, q, neg):
 def ec_add(ops, p, q):
     """Complete projective addition, RCB Algorithm 7 (a = 0)."""
     return _fused_add(ops, p, q, None)
-
-
-def ec_double(ops, p):
-    """Complete projective doubling, RCB Algorithm 9 (a = 0), batched waves."""
-    x, y, z = p["x"], p["y"], p["z"]
-    t0, t1, t2, txy = ops.mul_pack([(y, y), (y, z), (z, z), (x, y)])
-    z3a = ops.add(t0, t0)
-    z3a = ops.add(z3a, z3a)
-    z3a = ops.add(z3a, z3a)  # 8 Y^2
-    t2b = ops.mul_b3(t2)
-    y3s = ops.add(t0, t2b)
-    t0m = ops.sub(ops.sub(ops.sub(t0, t2b), t2b), t2b)  # t0 - 3*b3*Z^2
-    m1, m2, m3, m4 = ops.mul_pack(
-        [(t2b, z3a), (t1, z3a), (t0m, y3s), (t0m, txy)]
-    )
-    y3 = ops.add(m1, m3)
-    x3 = ops.add(m4, m4)
-    z3 = m2
-    return {"x": x3, "y": y3, "z": z3}
 
 
 def ec_to_affine(ops, p):

@@ -10,7 +10,7 @@ path the JAX package proves with on the CPU), with the same algorithm:
     addition across (windows * T) lanes — K2 (G1) or K3 (G2) on the card,
     with the digit's sign folded into the kernel;
   * tree reduction over threads, running-sum bucket reduction, Horner
-    combination of the windows.
+    combination of the windows (its doublings as complete additions).
 
 The bucket table of a batched MSM holds B * 32 * 128 * T points (264 bytes
 each on G1, 528 on G2) and is updated in place with gather/scatter.
@@ -219,11 +219,14 @@ def _window_tail(ops, buckets, t_threads: int):
 
 
 def _horner_combine(ops, total, n_windows: int, c_bits: int):
-    """res = sum_w 2^(c*w) S_w over the LAST batch axis of `total`."""
+    """res = sum_w 2^(c*w) S_w over the LAST batch axis of `total`.
+
+    Each doubling is the complete addition res + res: one K2/K3 launch,
+    where a doubling composed of field operations is a few hundred."""
     res = map_coords(total, lambda c: c[..., n_windows - 1])
     for w in range(n_windows - 2, -1, -1):
         for _ in range(c_bits):
-            res = CT.ec_double(ops, res)
+            res = CT.ec_add(ops, res, res)
         res = CT.ec_add(ops, res, map_coords(total, lambda c: c[..., w]))
     return res
 

@@ -1,15 +1,21 @@
 """Groth16 prover on the card: witness batch -> proofs.
 
 The port of ``zkemail_tpu/prover/groth16.py`` (``prove_batch`` and
-``prove``), on the path the JAX package takes on the CPU:
+``prove``):
 
   1. the h stage: sparse QAP matvecs A·w and B·w (gather, K1 Montgomery
      product, int32 ``index_add_``, lazy reduction) with the instance rows
      appended; C·w = A·w ∘ B·w rowwise; h evaluations on the shifted domain
      sigma*D — snarkjs' CircomReduction basis (iNTT -> sigma shift -> NTT ->
      a*b - c);
-  2. five bucket MSMs over the CRS queries: h, a, b1 and c on G1 (K2), b2
-     on G2 (K3);
+  2. five MSMs over the CRS queries: h, a, b1 and c on G1 (K2), b2 on G2
+     (K3), by the JAX package's route on an accelerator: the sort/telescope
+     MSM (``ops/msm_sort.py``) for h, and for the four signal MSMs its
+     window-pruned form under a signal plan cached on the key; the c MSM
+     runs over the whole signal vector with its public columns zeroed
+     against an identity-padded query. The bucket ``ops/msm.py::msm_multi``
+     (the JAX package's CPU route) is the reference it is held to
+     (``scripts/msm_routes.py``);
   3. batched affine conversion, then the r/s blinding on the host, in the
      JAX package's order, so a seeded ``random.Random`` gives the same
      proofs as the JAX prover.
@@ -30,7 +36,8 @@ from ..core.curve import G1, G2
 from ..core.towers import Fq2
 from ..device import resolve_device
 from ..ops import ntt as NTT
-from ..ops.msm import msm_multi
+from ..ops import msm_sort as MS
+from ..ops.msm import map_coords
 from .containers import Proof
 from .setup import ProvingKey, matrix_pack
 
@@ -153,12 +160,67 @@ def _results_to_host(a_dev, b2_dev, b1_dev, c_dev, h_dev, bsz: int):
             g1_list(affs[3]), g1_list(affs[4]))
 
 
-def prove_points(pk: ProvingKey, cc, witnesses: torch.Tensor, timers: dict | None = None):
-    """The device part of proving: witnesses (L, n_signals, B) standard form
-    on the key's device -> the five pre-blinding MSM results (a, b2, b1, c,
-    h) as host point lists of length B."""
-    bsz = witnesses.shape[2]
-    mats, plan = _prove_consts(cc, pk)
+# the signal MSMs and the query of each
+SIGNAL_MSMS = {"a": "a_query", "b2": "b2_query", "b1": "b1_query", "c": "c_query"}
+
+
+def _signal_query(pk: ProvingKey, name: str) -> dict:
+    """The unpermuted query of a signal MSM over all n_signals columns: the
+    c query front-padded with n_public + 1 identities (cached on the key),
+    so that the c MSM takes the full signal vector with its public columns
+    zeroed, under the same plan as a, b1 and b2."""
+    if name != "c":
+        return getattr(pk, SIGNAL_MSMS[name])
+    if "c_query_padded" not in pk.cache:
+        ident = CT.ec_identity(CT.FQ_OPS, (pk.n_public + 1,), pk.device)
+        pk.cache["c_query_padded"] = {
+            k: torch.cat([ident[k], pk.c_query[k]], dim=1) for k in "xyz"
+        }
+    return pk.cache["c_query_padded"]
+
+
+def _signal_plan(pk: ProvingKey, witness_t: torch.Tensor):
+    """(perm, prefixes, permuted queries) of the key's signal plan, built on
+    the device from the digits of witness_t (L, B, n_signals) when the key
+    has none. The plan is a hint: every pruned MSM checks its batch against
+    it and returns None on a miss (see _msm_signal_call)."""
+    if "signal_plan" not in pk.cache:
+        perm, prefixes = MS.build_signal_plan(witness_t)
+        queries = {
+            name: map_coords(_signal_query(pk, name), lambda c: c.index_select(1, perm))
+            for name in SIGNAL_MSMS
+        }
+        pk.cache["signal_plan"] = (perm, prefixes, queries)
+    return pk.cache["signal_plan"]
+
+
+def _msm_signal_call(pk: ProvingKey, name: str, scalars: torch.Tensor,
+                     witness_t: torch.Tensor):
+    """One signal MSM (a, b2, b1 or c) on the sort route, window-pruned
+    under the key's plan.
+
+    scalars (L, B, n_signals) are this MSM's (the c MSM's have their public
+    columns zeroed); witness_t is the batch's unzeroed witness, from which
+    the plan is built. Returns (point batch (B,), "hit" | "miss"). On a
+    miss the MSM runs dense through msm_sorted over the unpermuted query,
+    b2's over Fq2 included, and the plan is rebuilt from witness_t: a plan
+    built from the zeroed c scalars would put the public signals past its
+    prefixes and miss again at the next a MSM."""
+    ops = CT.FQ2_OPS if name == "b2" else CT.FQ_OPS
+    perm, prefixes, queries = _signal_plan(pk, witness_t)
+    out = MS.msm_sorted_pruned(ops, queries[name], scalars, perm, prefixes)
+    if out is not None:
+        return out, "hit"
+    del pk.cache["signal_plan"], queries
+    out = MS.msm_sorted(ops, _signal_query(pk, name), scalars)
+    _signal_plan(pk, witness_t)
+    return out, "miss"
+
+
+def _marker(pk: ProvingKey, timers: dict | None):
+    """mark(name): record the seconds since the previous mark (or since
+    this call) as timers[name], after the device has finished; a no-op
+    without timers."""
     sync = torch.cuda.synchronize if pk.device.type == "cuda" else (lambda: None)
     t0 = [time.time()]
 
@@ -169,56 +231,56 @@ def prove_points(pk: ProvingKey, cc, witnesses: torch.Tensor, timers: dict | Non
             timers[name] = round(now - t0[0], 3)
             t0[0] = now
 
+    return mark
+
+
+def msm_scalars(pk: ProvingKey, cc, witnesses: torch.Tensor):
+    """witnesses (L, n_signals, B) standard form on the key's device -> the
+    scalars of the five MSMs: h (L, B, m) from the h stage, and the
+    witness as (L, B, n_signals)."""
+    mats, plan = _prove_consts(cc, pk)
     # one proof at a time through the h stage bounds its NTT transients
     h_t = torch.cat(
-        [_h_stage(pk, witnesses[:, :, i : i + 1], mats, plan) for i in range(bsz)],
+        [_h_stage(pk, witnesses[:, :, i : i + 1], mats, plan)
+         for i in range(witnesses.shape[2])],
         dim=1,
     )
-    w_t = witnesses.movedim(2, 1)  # (L, B, n_signals)
+    return h_t, witnesses.movedim(2, 1)
+
+
+def prove_points(pk: ProvingKey, cc, witnesses: torch.Tensor, timers: dict | None = None):
+    """The device part of proving: witnesses (L, n_signals, B) standard form
+    on the key's device -> the five pre-blinding MSM results (a, b2, b1, c,
+    h) as host point lists of length B, by the sort route. timers as in
+    prove_batch."""
+    mark = _marker(pk, timers)
+    h_t, w_t = msm_scalars(pk, cc, witnesses)
     mark("h_stage_s")
-    h_dev = msm_multi(CT.FQ_OPS, pk.h_query, h_t)
+    h_dev = MS.msm_sorted(CT.FQ_OPS, pk.h_query, h_t)
     mark("msm_h_s")
     del h_t
-    a_dev = msm_multi(CT.FQ_OPS, pk.a_query, w_t)
-    mark("msm_a_s")
-    b2_dev = msm_multi(CT.FQ2_OPS, pk.b2_query, w_t)
-    mark("msm_b2_s")
-    b1_dev = msm_multi(CT.FQ_OPS, pk.b1_query, w_t)
-    mark("msm_b1_s")
-    c_dev = msm_multi(CT.FQ_OPS, pk.c_query, w_t[:, :, pk.n_public + 1 :])
-    mark("msm_c_s")
-    return _results_to_host(a_dev, b2_dev, b1_dev, c_dev, h_dev, bsz)
+    c_scal = w_t.clone()
+    c_scal[:, :, : pk.n_public + 1] = 0
+    out, outcome = {}, {}
+    for name in ("a", "b2", "b1", "c"):
+        scal = c_scal if name == "c" else w_t
+        out[name], outcome[name] = _msm_signal_call(pk, name, scal, w_t)
+        mark(f"msm_{name}_s")
+    if timers is not None:
+        timers["plan"] = outcome
+    return _results_to_host(out["a"], out["b2"], out["b1"], out["c"], h_dev,
+                            witnesses.shape[2])
 
 
-@torch.inference_mode()
-def prove_batch(
-    pk: ProvingKey,
-    cc,
-    witnesses,
-    rng: random.Random | None = None,
-    timers: dict | None = None,
-    device=None,
-) -> list[tuple[Proof, list[int]]]:
-    """Prove a batch of witnesses (L, n_signals, B) (standard-form limbs,
-    numpy or tensor) on `device` (default: CUDA; the key must live there).
-
-    Returns one (proof, public_inputs) per batch element. `timers`, when
-    given, receives the stage times h_stage_s and msm_{h,a,b2,b1,c}_s."""
-    dev = resolve_device(device)
-    if pk.device != dev:
-        raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
-    rng = rng or random.SystemRandom()
-    witnesses = LB.to_device(witnesses, dev)
-    if witnesses.dim() != 3 or witnesses.shape[:2] != (L, cc.n_signals):
-        raise ValueError(
-            f"witnesses must be (L={L}, n_signals={cc.n_signals}, B); "
-            f"got {tuple(witnesses.shape)}"
-        )
-    bsz = witnesses.shape[2]
-    a_l, b2_l, b1_l, c_l, h_l = prove_points(pk, cc, witnesses, timers)
+def blind(pk: ProvingKey, points, witnesses: torch.Tensor, rng: random.Random):
+    """The five pre-blinding MSM results of a batch (as prove_points returns
+    them) -> one (proof, public_inputs) per batch element: the r/s blinding
+    on the host, r then s drawn from rng per proof, in the JAX package's
+    order."""
+    a_l, b2_l, b1_l, c_l, h_l = points
     w_pub = LB.limbs_to_ints(witnesses[:, 1 : pk.n_public + 1, :])
     out = []
-    for i in range(bsz):
+    for i in range(witnesses.shape[2]):
         r = rng.randrange(P)
         s = rng.randrange(P)
         a_pt = a_l[i].add(pk.alpha_g1).add(pk.delta_g1.mul(r))
@@ -234,6 +296,35 @@ def prove_batch(
         publics = [int(v) for v in w_pub[:, i]]
         out.append((Proof(a_pt, b_pt, c_pt), publics))
     return out
+
+
+@torch.inference_mode()
+def prove_batch(
+    pk: ProvingKey,
+    cc,
+    witnesses,
+    rng: random.Random | None = None,
+    timers: dict | None = None,
+    device=None,
+) -> list[tuple[Proof, list[int]]]:
+    """Prove a batch of witnesses (L, n_signals, B) (standard-form limbs,
+    numpy or tensor) on `device` (default: CUDA; the key must live there).
+
+    Returns one (proof, public_inputs) per batch element. `timers`, when
+    given, receives the stage times h_stage_s and msm_{h,a,b2,b1,c}_s, and
+    plan: each signal MSM's outcome under the key's signal plan ("hit", or
+    "miss": proved dense, plan rebuilt)."""
+    dev = resolve_device(device)
+    if pk.device != dev:
+        raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
+    witnesses = LB.to_device(witnesses, dev)
+    if witnesses.dim() != 3 or witnesses.shape[:2] != (L, cc.n_signals):
+        raise ValueError(
+            f"witnesses must be (L={L}, n_signals={cc.n_signals}, B); "
+            f"got {tuple(witnesses.shape)}"
+        )
+    points = prove_points(pk, cc, witnesses, timers)
+    return blind(pk, points, witnesses, rng or random.SystemRandom())
 
 
 def prove(pk: ProvingKey, cc, witness, rng: random.Random | None = None,
