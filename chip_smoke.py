@@ -32,16 +32,30 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      proofs are identical; both routes' stage timers and kernel launch
      counts, each count of the sort route non-zero; the b2 MSM once more
      by msm_bitserial, equal to the pruned sort result; the level-1
-     additions of the signal MSMs, dense and pruned.
+     additions of the signal MSMs, dense and pruned;
+  5. the email path at full width, by the port's own code alone: build and
+     compile the full640 EmailVerifier (header 640, body 768: 1,351,641
+     constraints, 1,310,234 signals), sign B = 2 distinct emails with a
+     seeded RSA-2048 key, verify DKIM and generate the circuit inputs on the
+     host, compute the witness on the card (K1 launches, widths and host
+     syncs counted), check A·w ∘ B·w = C·w on the card and the public
+     outputs against host values (Poseidon of the key, SHA-256 of the
+     signed header), then setup and prove_batch on the real witness (stage
+     timers, signal plan): the proofs verify and a tampered public fails; a
+     flipped signature bit gives a witness that does not satisfy the R1CS;
+     and at header 448 / body 192 the card's witness equals the CPU's (the
+     plain versions) limb for limb.
 
 It then prints one JSON line with each kernel's numbers (launches: the sort
-route's prove), the card's name and power limit, and last {"ok": true,
-"device": {...}}. Any failure is an uncaught exception and a non-zero exit;
-without a CUDA device it exits 1 before printing any result.
+route's prove in phase 4; launches_witness and launches_email: phase 5's
+witness and its prove), the card's name and power limit, and last
+{"ok": true, "device": {...}}. Any failure is an uncaught exception and a
+non-zero exit; without a CUDA device it exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import random
 import subprocess
@@ -50,6 +64,12 @@ import time
 
 # Dimensions of the full EmailVerifier circuit (full640, BENCH_r05.json).
 FULL640 = {"n_constraints": 1_351_641, "n_signals": 1_310_234}
+FULL640_LENGTHS = (640, 768)  # max header and body bytes (bench.py CONFIGS)
+SMALL_LENGTHS = (448, 192)  # the card-against-CPU witness check
+# K1 widths of the email witness besides the bulk (lanes, at B = 2): the
+# Fermat inversion chains of is_zero (1), the Poseidon S-boxes (20) and MDS
+# products (200), the FpMul evaluation products (17 x 33 x 2)
+K1_WITNESS_WIDTHS = (1, 20, 200, 1122)
 SMALL = {"n_constraints": 1000, "n_signals": 960}
 BATCH = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -141,6 +161,15 @@ def main() -> int:
     from zkemail_tpu_torch.prover.setup import groth16_setup
     from zkemail_tpu_torch.scripts.msm_routes import bucket_points
     from zkemail_tpu_torch.scripts.synthetic_r1cs import make_circuit
+    from zkemail_tpu_torch.circuits.r1cs import satisfied
+    from zkemail_tpu_torch.core.poseidon import poseidon_large
+    from zkemail_tpu_torch.helpers.dkim import verify_dkim_signature
+    from zkemail_tpu_torch.helpers.input_gen import (
+        InputGenArgs, generate_email_verifier_inputs)
+    from zkemail_tpu_torch.helpers.testkit import LocalDKIMSigner
+    from zkemail_tpu_torch.models.email_verifier import (
+        EmailVerifierConfig, build_email_verifier)
+    from zkemail_tpu_torch.models.input_bridge import prepare_inputs
 
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
@@ -211,6 +240,19 @@ def main() -> int:
         record("mont_mul", err, k_ms, p_ms, n)
         log(f"  K1 mont_mul {field} {n} lanes: equal; {k_ms:.4f} ms/launch, "
             f"plain {p_ms:.3f} ms")
+    # the email witness's widths (Fr): every slice of w lanes of the first
+    # max(w, 64) of the bulk operands against the plain version
+    for w in K1_WITNESS_WIDTHS:
+        for lo in range(0, max(w, 64), w):
+            aw, bw = a[:, lo : lo + w].contiguous(), b[:, lo : lo + w].contiguous()
+            err = max_err(FK.mont_mul_flat("Fr", aw, bw), FK.mont_mul_plain("Fr", aw, bw))
+            if err:
+                raise AssertionError(f"K1 Fr at {w} lanes: kernel differs from plain")
+        results["mont_mul"][f"ms_{w}"] = time_ms(
+            torch, lambda: FK.mont_mul_flat("Fr", aw, bw), 200 if w <= 64 else 20)
+    log("  K1 mont_mul Fr at " + ", ".join(
+        f"{w} lanes: equal; {results['mont_mul'][f'ms_{w}']:.4f} ms/launch"
+        for w in K1_WITNESS_WIDTHS))
 
     def curve_operands(kind: str, n: int):
         """Random points p, q = s * G, with q the identity on lanes i % 7 == 0,
@@ -263,6 +305,7 @@ def main() -> int:
         return rows * -(-n_points // MS.K_BLOCK)
 
     route_widths = {
+        "mont_mul": K1_WITNESS_WIDTHS,
         "ec_add_g1": (level1(H_POINTS), rows << (MS.C_BITS_SORT - 1), 64, rows, 2),
         "ec_add_g2": (level1(FULL640["n_signals"]), 64, rows, 2),
     }
@@ -443,7 +486,154 @@ def main() -> int:
         f"{t_bucket:.2f} s; timers {json.dumps(bucket_timers)}; launches "
         f"{json.dumps(bucket_launches)}; phase {time.time() - t0:.1f} s")
 
-    # -- 5. results ------------------------------------------------------------
+    del pk, circ, w, sort_proofs, bucket_proofs
+    torch.cuda.empty_cache()
+
+    # -- 5. the email path at full width -----------------------------------------
+    t0 = time.time()
+    signer = LocalDKIMSigner(seed=2026)
+    emails = [
+        signer.sign_email(subject="Full-width proof, email one",
+                          body=b"The first email proved on the card.\r\n"),
+        signer.sign_email(subject="Email two", to="carol@example.net",
+                          body=b"A second body,\r\nwith two lines.\r\n"),
+    ]
+
+    def email_inputs(lengths, batch, device):
+        cfg = EmailVerifierConfig(max_headers_length=lengths[0], max_body_length=lengths[1])
+        args = InputGenArgs(max_headers_length=lengths[0], max_body_length=lengths[1])
+        raws = [generate_email_verifier_inputs(e, signer.resolver(), args) for e in batch]
+        return cfg, raws, prepare_inputs(raws, cfg, device=device)
+
+    t = time.time()
+    cfg = EmailVerifierConfig(*FULL640_LENGTHS)
+    handles = build_email_verifier(cfg)
+    t_build = time.time() - t
+    t = time.time()
+    cc = handles.cs.compile()
+    t_compile = time.time() - t
+    dims = {"n_constraints": cc.n_constraints, "n_signals": cc.n_signals}
+    if dims != FULL640:
+        raise AssertionError(f"full640 built with {dims}, expected {FULL640}")
+    t = time.time()
+    dkims = [verify_dkim_signature(e, signer.resolver()) for e in emails]
+    _, raws, inputs = email_inputs(FULL640_LENGTHS, emails, dev)
+    torch.cuda.synchronize()
+    t_inputs = time.time() - t
+    log(f"phase 5 email path (full640, B={BATCH}): build {t_build:.2f} s, compile "
+        f"{t_compile:.2f} s ({cc.n_constraints} constraints, {cc.n_signals} signals, "
+        f"{len(cc.steps)} witness steps); DKIM verify + inputs {t_inputs:.3f} s")
+
+    def witness(inputs, stats=None):
+        t = time.time()
+        w = cc.eval_witness(inputs, BATCH, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        return w, time.time() - t
+
+    k1_widths = {}
+    mont_mul_flat = FK.mont_mul_flat
+
+    def counting_mont_mul(field, x, y):  # K1 widths of the witness run
+        k1_widths[x.shape[1]] = k1_widths.get(x.shape[1], 0) + 1
+        return mont_mul_flat(field, x, y)
+
+    _, t_cold = witness(inputs)  # moves the steps' constants to the card
+    FK.reset_launches()
+    FK.mont_mul_flat = counting_mont_mul
+    try:
+        w, t_warm = witness(inputs)
+    finally:
+        FK.mont_mul_flat = mont_mul_flat
+    witness_launches = dict(FK.LAUNCHES)
+    if witness_launches["mont_mul"] == 0:
+        raise AssertionError("K1 not launched by the witness")
+    _, t_again = witness(inputs)
+    stats = {}
+    _, t_stats = witness(inputs, stats)
+    top = sorted(k1_widths.items(), key=lambda kv: -kv[1])[:8]
+    steps_s = dict(sorted(((k, round(v, 4)) for k, v in stats["steps_s"].items()),
+                          key=lambda kv: -kv[1]))
+    log(f"  witness on the card: cold {t_cold:.3f} s, warm {t_warm:.3f} / {t_again:.3f} s "
+        f"({t_warm / BATCH * 1e3:.1f} / {t_again / BATCH * 1e3:.1f} ms per email); "
+        f"launches {json.dumps(witness_launches)}; K1 widths (lanes: launches) "
+        f"{json.dumps(dict(top))}; host syncs {stats['syncs']}")
+    log(f"  witness by step kind (synchronized after each step, {t_stats:.3f} s): "
+        f"{json.dumps(steps_s)}")
+    t = time.time()
+    ok = satisfied(cc, w)
+    torch.cuda.synchronize()
+    if not bool(ok.all()):
+        raise AssertionError(f"the card's witness does not satisfy the R1CS: {ok.tolist()}")
+    t_check = time.time() - t
+    n_key = signer.public_key[0]
+    for b, res in enumerate(dkims):
+        digest = hashlib.sha256(res.headers).digest()
+        want = [poseidon_large(n_key, 121, 9), int.from_bytes(digest[:16], "big"),
+                int.from_bytes(digest[16:], "big")]
+        got = [int(v) for v in LB.limbs_to_ints(w[:, 1 : cc.n_public + 1, b])]
+        if got != want:
+            raise AssertionError(f"email {b}: publics {got} differ from host {want}")
+    log(f"  A·w ∘ B·w = C·w on the card for both emails ({t_check:.2f} s); pubkeyHash, "
+        f"shaHi, shaLo equal the host's Poseidon and SHA-256")
+
+    t = time.time()
+    pk = groth16_setup(cc, seed=3, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t
+    FK.reset_launches()
+    timers = {}
+    t = time.time()
+    proofs = prove_batch(pk, cc, w, rng=random.Random(4), timers=timers, device=dev)
+    t_prove = time.time() - t
+    email_launches = dict(FK.LAUNCHES)
+    missing = [k for k, v in email_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the email prove: {missing}")
+    for proof, publics in proofs:
+        if not verify(pk.vk, proof, publics):
+            raise AssertionError("an email proof does not verify")
+        if verify(pk.vk, proof, [(publics[0] + 1) % F.R] + publics[1:]):
+            raise AssertionError("an email proof verifies with a tampered public")
+    _, prefixes, _ = pk.cache["signal_plan"]
+    dense_adds = BATCH * len(prefixes) * cc.n_signals
+    pruned_adds = BATCH * sum(prefixes)
+    log(f"  setup {t_setup:.2f} s; prove_batch {t_prove:.2f} s: proofs verify, tampered "
+        f"public refused; timers {json.dumps(timers)}; launches "
+        f"{json.dumps(email_launches)}")
+    log(f"  signal plan: prefixes {list(prefixes)}; level-1 lane-adds per signal MSM "
+        f"dense {dense_adds}, pruned {pruned_adds} ({pruned_adds / dense_adds:.4f})")
+    del pk, proofs
+    torch.cuda.empty_cache()
+
+    bad = dict(raws[0])
+    sig = [int(v) for v in bad["signature"]]
+    sig[0] ^= 1
+    bad["signature"] = [str(v) for v in sig]
+    w_bad, _ = witness(prepare_inputs([bad, raws[1]], cfg, device=dev))
+    ok = satisfied(cc, w_bad).tolist()
+    if ok != [False, True]:
+        raise AssertionError(f"flipped signature bit: satisfied {ok}, expected [False, True]")
+    del w, w_bad, inputs
+    log("  a flipped signature bit: the witness does not satisfy the R1CS")
+
+    t = time.time()
+    cfg_s, _, inputs_card = email_inputs(SMALL_LENGTHS, emails, dev)
+    cc_s = build_email_verifier(cfg_s).cs.compile()
+    w_card = cc_s.eval_witness(inputs_card, BATCH, device=dev)
+    _, _, inputs_cpu = email_inputs(SMALL_LENGTHS, emails, "cpu")
+    t_cpu = time.time()
+    w_cpu = cc_s.eval_witness(inputs_cpu, BATCH, device="cpu")
+    t_cpu = time.time() - t_cpu
+    if not torch.equal(w_card.cpu(), w_cpu):
+        diff = int((w_card.cpu() != w_cpu).any(dim=0).any(dim=1).sum())
+        raise AssertionError(f"448/192: the card's witness differs from the CPU's "
+                             f"at {diff} signals")
+    log(f"  448/192 ({cc_s.n_signals} signals): the card's witness equals the CPU's "
+        f"limb for limb (CPU witness {t_cpu:.1f} s); {time.time() - t:.1f} s")
+    del cc_s, w_card, w_cpu
+    log(f"phase 5: {time.time() - t0:.1f} s")
+
+    # -- 6. results ------------------------------------------------------------
     line = {"kernels": [
         {
             "name": name,
@@ -458,6 +648,8 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "launches_bucket": bucket_launches[name],
+            "launches_witness": witness_launches[name],
+            "launches_email": email_launches[name],
             **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},
         }
         for name, r in results.items()

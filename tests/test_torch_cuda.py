@@ -85,3 +85,43 @@ def test_ec_add_kernels_equal_plain(dev, group, n):
     assert FK.LAUNCHES[name] == before + 1
     for a, b in zip(_components(out, group), _components(ref, group)):
         assert torch.equal(a, b)
+
+
+def test_witness_on_card_equals_cpu(dev):
+    """A small circuit of the gadgets with witness steps of their own (bits,
+    is_zero's inversion, full-field products, Poseidon, SHA-256): its
+    witness on the card, K1 included, equals the CPU's limb for limb."""
+    import numpy as np
+
+    from zkemail_tpu_torch.circuits.builder import ConstraintSystem
+    from zkemail_tpu_torch.circuits.gadgets import basic
+    from zkemail_tpu_torch.circuits.gadgets.poseidon_gadget import poseidon_hash
+    from zkemail_tpu_torch.circuits.gadgets.sha_wrappers import sha256_bytes
+    from zkemail_tpu_torch.core import limbs as LB
+    from zkemail_tpu_torch.helpers.sha_utils import sha256_pad
+
+    cs = ConstraintSystem("card")
+    x = cs.add_input("x", (3,))
+    f = cs.add_input("f", (3,), dtype="fr")
+    data = cs.add_input("data", (64,))
+    n = cs.add_input("len", ())
+    basic.num2bits(cs, x, 20)
+    basic.is_zero(cs, x)
+    poseidon_hash(cs, cs.mul(f, x))
+    sha256_bytes(cs, data, n)
+    cc = cs.compile()
+    rng = np.random.default_rng(3)
+    msgs = [rng.bytes(20), rng.bytes(40)]
+    padded = [sha256_pad(m, 64) for m in msgs]
+    arrs = {
+        "x": np.array([[0, 7], [1 << 19, 5], [3, 0]], dtype=np.int32),
+        "f": LB.ints_to_limbs([[int(rng.integers(1, 1 << 62)) << 180 for _ in range(2)]
+                               for _ in range(3)]),
+        "data": np.stack([np.frombuffer(p, dtype=np.uint8) for p, _ in padded], 1).astype(np.int32),
+        "len": np.array([n for _, n in padded], dtype=np.int32),
+    }
+    before = FK.LAUNCHES["mont_mul"]
+    w_card = cc.eval_witness({k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}, 2)
+    assert FK.LAUNCHES["mont_mul"] > before
+    w_cpu = cc.eval_witness({k: torch.as_tensor(v) for k, v in arrs.items()}, 2, device="cpu")
+    assert torch.equal(w_card.cpu(), w_cpu)

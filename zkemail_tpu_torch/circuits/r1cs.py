@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..core.field import R as P
 
@@ -51,3 +52,22 @@ def matrix(rows, cols, coeffs) -> tuple:
     if not (rows.shape == cols.shape == coeffs.shape) or rows.ndim != 1:
         raise ValueError("rows, cols and coeffs must be 1-D and of one length")
     return rows, cols, coeffs
+
+
+def satisfied(cc, witness: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: whether A·w ∘ B·w = C·w holds on every constraint, for a
+    witness batch (L, n_signals, B) of standard-form limbs, on its device.
+
+    The matrices move to that device once (``prover/setup.py::matrix_pack``,
+    cached on the circuit) and each product goes through the prover's
+    ``qap_matvec`` (K1 on a CUDA tensor)."""
+    from ..core import limbs as LB
+    from ..prover.groth16 import qap_matvec
+    from ..prover.setup import matrix_pack
+
+    with torch.inference_mode():
+        w_mont = LB.to_mont(LB.FR_SPEC, witness)
+        aw, bw, cw = (qap_matvec(matrix_pack(cc, m, witness.device), w_mont, cc.n_constraints)
+                      for m in "ABC")
+        diff = LB.sub(LB.FR_SPEC, LB.mont_mul(LB.FR_SPEC, aw, bw), cw)
+        return (diff == 0).all(dim=0).all(dim=0)

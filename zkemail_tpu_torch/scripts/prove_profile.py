@@ -32,10 +32,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("prove_profile needs a CUDA device")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    card = card_name()
     circ = make_circuit(FULL640["n_constraints"], FULL640["n_signals"], seed=1)
     w = circ.witness(2, seed=2)
     pk = groth16_setup(circ.r1cs, seed=3, device=dev)
@@ -48,6 +45,22 @@ def main() -> None:
         prove_batch(pk, circ.r1cs, w, rng=random.Random(4), timers=timers, device=dev)
         wall = time.time() - t0
 
+    summary, lines = device_summary(prof, wall)
+    summary = {"card": card, "warm_timers": warm, "timers": timers, **summary}
+    write_profile("prove_profile.txt", summary, lines)
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def device_summary(prof, wall: float):
+    """(summary, table lines) of a torch.profiler run over `wall` seconds:
+    device time by kernel, the port's K1-K3 and their share, and the
+    device's busy share of the wall time."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
@@ -63,20 +76,23 @@ def main() -> None:
     device_s = sum(r[1] for r in kernel_rows)
     port_s = {k: sum(r[1] for r in kernel_rows if k in r[0]) for k in PORT_KERNELS}
     summary = {
-        "card": card,
-        "warm_timers": warm,
-        "timers": timers,
         "profiled_wall_s": wall,
         "device_busy_s": device_s,
         "device_busy_share": device_s / wall,
+        "kernel_launches": sum(r[2] for r in kernel_rows),
         "port_kernel_s": port_s,
         "port_kernel_share_of_device": sum(port_s.values()) / device_s if device_s else None,
         "top_kernels": [(k[:90], round(s, 4), n) for k, s, n in kernel_rows[:15]],
     }
+    return summary, [f"{s:12.6f} s  {n:8d}  {k}" for k, s, n in kernel_rows]
+
+
+def write_profile(name: str, summary: dict, lines: list) -> None:
+    """The summary and the full table to chiprun_out/<name>; the summary to
+    standard output as one JSON line."""
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    lines = [f"{s:12.6f} s  {n:8d}  {k}" for k, s, n in kernel_rows]
-    (out / "prove_profile.txt").write_text(json.dumps(summary, indent=1) + "\n\n" + "\n".join(lines))
+    (out / name).write_text(json.dumps(summary, indent=1) + "\n\n" + "\n".join(lines))
     print(json.dumps(summary))
 
 
