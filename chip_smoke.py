@@ -44,11 +44,27 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      timers, signal plan): the proofs verify and a tampered public fails; a
      flipped signature bit gives a witness that does not satisfy the R1CS;
      and at header 448 / body 192 the card's witness equals the CPU's (the
-     plain versions) limb for limb.
+     plain versions) limb for limb;
+  6. phase 5's key from disk: export_chunked -> load_chunked onto the card,
+     and write_zkey_file -> read_zkey_file (the conversions on the card,
+     K1 launches counted), each loaded key with an empty cache proving phase
+     5's proofs under the same rng (its signal plan built on first use);
+     then groth16_setup_cached in a fresh directory, a miss and a hit, both
+     equal to the setup; times and file sizes; the files are deleted;
+  7. the rest of bench.py's circuits at full width, B = 2: full640reveal,
+     sha640 and rsa2048 (models/subcircuits.py), each built, compiled, given
+     the benchmark's signed emails (subcircuit_inputs, reveal_window), its
+     witness on the card satisfying the R1CS with the host's publics, set up
+     by groth16_setup_cached and proved, the proofs verifying and a tampered
+     public refused; and the EmailVerifier's remove_soft_line_breaks at
+     448/192 on bodies with quoted-printable breaks: the card's witness
+     equals the CPU's and satisfies the R1CS, its step count printed.
 
 It then prints one JSON line with each kernel's numbers (launches: the sort
 route's prove in phase 4; launches_witness and launches_email: phase 5's
-witness and its prove), the card's name and power limit, and last
+witness and its prove; launches_key_load, launches_zkey_write and
+launches_zkey_read: phase 6's loaders; launches_<config>_prove: phase 7's
+proves), the card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure is an uncaught exception and a
 non-zero exit; without a CUDA device it exits 1 before printing any result.
 """
@@ -58,14 +74,20 @@ from __future__ import annotations
 import hashlib
 import json
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 # Dimensions of the full EmailVerifier circuit (full640, BENCH_r05.json).
 FULL640 = {"n_constraints": 1_351_641, "n_signals": 1_310_234}
 FULL640_LENGTHS = (640, 768)  # max header and body bytes (bench.py CONFIGS)
-SMALL_LENGTHS = (448, 192)  # the card-against-CPU witness check
+SMALL_LENGTHS = (448, 192)  # the card-against-CPU witness checks
+# a quoted-printable body with two soft line breaks (remove_soft_line_breaks)
+SOFT_BODY = (b"A quoted-printable body whose long line is soft=\r\n"
+             b"broken twice, here=\r\nand here.\r\n")
 # K1 widths of the email witness besides the bulk (lanes, at B = 2): the
 # Fermat inversion chains of is_zero (1), the Poseidon S-boxes (20) and MDS
 # products (200), the FpMul evaluation products (17 x 33 x 2)
@@ -143,6 +165,7 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -170,6 +193,12 @@ def main() -> int:
     from zkemail_tpu_torch.models.email_verifier import (
         EmailVerifierConfig, build_email_verifier)
     from zkemail_tpu_torch.models.input_bridge import prepare_inputs
+    from zkemail_tpu_torch.models.subcircuits import (
+        CONFIGS, bench_emails, build_bench_circuit, reveal_window, subcircuit_inputs)
+    from zkemail_tpu_torch.prover.artifacts import QUERIES as ARTIFACT_QUERIES
+    from zkemail_tpu_torch.prover.artifacts import export_chunked, load_chunked
+    from zkemail_tpu_torch.prover.setup import groth16_setup_cached
+    from zkemail_tpu_torch.prover.zkey import read_zkey_file, write_zkey_file
 
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
@@ -513,6 +542,7 @@ def main() -> int:
     cc = handles.cs.compile()
     t_compile = time.time() - t
     dims = {"n_constraints": cc.n_constraints, "n_signals": cc.n_signals}
+    full640_steps = len(cc.steps)
     if dims != FULL640:
         raise AssertionError(f"full640 built with {dims}, expected {FULL640}")
     t = time.time()
@@ -602,7 +632,8 @@ def main() -> int:
         f"{json.dumps(email_launches)}")
     log(f"  signal plan: prefixes {list(prefixes)}; level-1 lane-adds per signal MSM "
         f"dense {dense_adds}, pruned {pruned_adds} ({pruned_adds / dense_adds:.4f})")
-    del pk, proofs
+    email_proofs = [(pr.a, pr.b, pr.c, tuple(pub)) for pr, pub in proofs]
+    del proofs
     torch.cuda.empty_cache()
 
     bad = dict(raws[0])
@@ -613,7 +644,7 @@ def main() -> int:
     ok = satisfied(cc, w_bad).tolist()
     if ok != [False, True]:
         raise AssertionError(f"flipped signature bit: satisfied {ok}, expected [False, True]")
-    del w, w_bad, inputs
+    del w_bad, inputs
     log("  a flipped signature bit: the witness does not satisfy the R1CS")
 
     t = time.time()
@@ -633,7 +664,227 @@ def main() -> int:
     del cc_s, w_card, w_cpu
     log(f"phase 5: {time.time() - t0:.1f} s")
 
-    # -- 6. results ------------------------------------------------------------
+    # -- 6. keys from disk at full640 --------------------------------------------
+    t0 = time.time()
+    path_launches = {}
+
+    def counted(label, fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after (the device synchronized), as path_launches[label]; returns
+        (fn's result, seconds)."""
+        FK.reset_launches()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[label] = dict(FK.LAUNCHES)
+        return out, time.time() - t
+
+    def proves_as_phase5(key, label):
+        """prove_batch on a loaded key (empty cache: the signal plan is
+        built from this batch) gives phase 5's proofs under the same rng."""
+        if key.cache:
+            raise AssertionError(f"{label}: the loaded key has a cache {list(key.cache)}")
+        timers = {}
+        got, t_prove = counted(f"prove_{label}", lambda: prove_batch(
+            key, cc, w, rng=random.Random(4), timers=timers, device=dev))
+        if [(pr.a, pr.b, pr.c, tuple(pub)) for pr, pub in got] != email_proofs:
+            raise AssertionError(f"{label}: proofs differ from phase 5's")
+        missing = [k for k, v in path_launches[f"prove_{label}"].items() if v == 0]
+        if missing or "signal_plan" not in key.cache:
+            raise AssertionError(f"{label}: kernels {missing} not launched, or no plan built")
+        log(f"  prove_batch on the {label} key: {t_prove:.2f} s, proofs equal phase 5's; "
+            f"plan built on first use, {json.dumps(timers['plan'])}; timers "
+            f"{json.dumps({k: v for k, v in timers.items() if k != 'plan'})}")
+
+    def keys_equal(a, b) -> bool:
+        tabs = [(u, v) for q in ARTIFACT_QUERIES for k in "xyz"
+                for u, v in zip(coords({k: getattr(a, q)[k]}), coords({k: getattr(b, q)[k]}))]
+        host = ("domain_log2", "n_public", "n_constraints", "alpha_g1", "beta_g1", "beta_g2",
+                "delta_g1", "delta_g2")
+        return (all(torch.equal(u, v) for u, v in tabs)
+                and all(getattr(a, h) == getattr(b, h) for h in host) and a.vk == b.vk)
+
+    def dir_bytes(path) -> int:
+        return sum(f.stat().st_size for f in Path(path).iterdir())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keys_") as tmp:
+        tmp = Path(tmp)
+        manifest, t_export = counted("export", lambda: export_chunked(pk, tmp / "chunks",
+                                                                     name="full640"))
+        stream = sum(ch["bytes"] for ch in manifest["chunks"])
+        gz = dir_bytes(tmp / "chunks")
+        pk_c, t_load = counted("key_load", lambda: load_chunked(tmp / "chunks", "full640",
+                                                               device=dev))
+        if not keys_equal(pk_c, pk):
+            raise AssertionError("the chunk-loaded key differs from the setup's")
+        shutil.rmtree(tmp / "chunks")
+        log(f"phase 6 keys from disk (full640): export_chunked {t_export:.2f} s ({stream} B "
+            f"stream, {gz} B in {len(manifest['chunks'])} gzip chunks), load_chunked "
+            f"{t_load:.2f} s (launches {json.dumps(path_launches['key_load'])}): equal tables")
+        proves_as_phase5(pk_c, "chunk-loaded")
+        del pk_c
+        torch.cuda.empty_cache()
+
+        zkey_path = tmp / "full640.zkey"
+        _, t_zwrite = counted("zkey_write", lambda: write_zkey_file(pk, zkey_path, cc))
+        zkey_size = zkey_path.stat().st_size
+        (pk_z, coeffs), t_zread = counted("zkey_read", lambda: read_zkey_file(zkey_path,
+                                                                            device=dev))
+        zkey_path.unlink()
+        n_inst = cc.n_public + 1
+        if (pk_z.n_constraints != cc.n_constraints
+                or not np.array_equal(coeffs["A"][0][:-n_inst], cc.A[0])
+                or not np.array_equal(coeffs["B"][1], cc.B[1])
+                or not (coeffs["A"][2][:-n_inst] == cc.A[2]).all()
+                or not (coeffs["B"][2] == cc.B[2]).all()):
+            raise AssertionError("the zkey's coefficients or constraint count differ from the circuit's")
+        for label in ("zkey_write", "zkey_read"):
+            if path_launches[label]["mont_mul"] == 0:
+                raise AssertionError(f"K1 not launched by {label}")
+        log(f"  write_zkey_file {t_zwrite:.2f} s, read_zkey_file {t_zread:.2f} s ({zkey_size} B; "
+            f"K1 launches write {path_launches['zkey_write']['mont_mul']}, read "
+            f"{path_launches['zkey_read']['mont_mul']}); coefficients and n_constraints "
+            f"{pk_z.n_constraints} equal the circuit's")
+        proves_as_phase5(pk_z, "zkey-read")
+        del pk_z, coeffs
+        torch.cuda.empty_cache()
+
+        cache_dir = tmp / "setup_cache"
+        pk_miss, t_miss = counted("setup_cached_miss", lambda: groth16_setup_cached(
+            cc, seed=3, cache_dir=str(cache_dir), device=dev))
+        stored = [p.name for p in cache_dir.iterdir()]
+        pk_hit, t_hit = counted("setup_cached_hit", lambda: groth16_setup_cached(
+            cc, seed=3, cache_dir=str(cache_dir), device=dev))
+        if not (keys_equal(pk_miss, pk) and keys_equal(pk_hit, pk) and not pk_hit.cache):
+            raise AssertionError("groth16_setup_cached: the miss or the hit differs from setup")
+        log(f"  groth16_setup_cached: miss {t_miss:.2f} s (setup + export to {stored}), hit "
+            f"{t_hit:.2f} s; both equal phase 5's setup")
+        del pk_miss, pk_hit
+    del pk, w
+    torch.cuda.empty_cache()
+    log(f"phase 6: {time.time() - t0:.1f} s")
+
+    # -- 7. the rest of bench.py's circuits at full width ---------------------------
+    t0 = time.time()
+    bench_signer = LocalDKIMSigner(seed=2027)
+    bench_dkims = [verify_dkim_signature(e, bench_signer.resolver())
+                   for e in bench_emails(bench_signer, BATCH)]
+    n_bench = bench_signer.public_key[0]
+
+    def host_publics(kind: str, b: int) -> list:
+        """The publics of bench email b, computed on the host."""
+        digest = hashlib.sha256(bench_dkims[b].headers).digest()
+        sha = [int.from_bytes(digest[:16], "big"), int.from_bytes(digest[16:], "big")]
+        if kind == "sha":
+            return sha
+        out = [poseidon_large(n_bench, 121, 9)] + sha
+        if kind == "email_reveal":
+            window = f"subject:bench email {b}".encode().ljust(2 * 31, b"\x00")
+            out += [int.from_bytes(window[:31], "little"), int.from_bytes(window[31:], "little")]
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_setup_") as cache_dir:
+        for name in ("full640reveal", "sha640", "rsa2048"):
+            spec = CONFIGS[name]
+            kind = spec["kind"]
+            t_c = time.time()
+            t = time.time()
+            cs = build_bench_circuit(spec)
+            t_build = time.time() - t
+            t = time.time()
+            cc = cs.compile()
+            t_compile = time.time() - t
+            del cs
+            t = time.time()
+            if kind == "email_reveal":
+                args = InputGenArgs(max_headers_length=FULL640_LENGTHS[0],
+                                    max_body_length=FULL640_LENGTHS[1])
+                raws = [generate_email_verifier_inputs(e, bench_signer.resolver(), args)
+                        for e in bench_emails(bench_signer, BATCH)]
+                inputs = prepare_inputs(raws, EmailVerifierConfig(*FULL640_LENGTHS), device=dev)
+                inputs.update(reveal_window(raws, device=dev))
+            else:
+                inputs = subcircuit_inputs(kind, spec, BATCH, bench_signer, device=dev)
+            torch.cuda.synchronize()
+            t_inputs = time.time() - t
+            w, t_cold = counted(f"{name}_witness_cold",
+                                lambda: cc.eval_witness(inputs, BATCH, device=dev))
+            w, t_warm = counted(f"{name}_witness", lambda: cc.eval_witness(inputs, BATCH,
+                                                                        device=dev))
+            t = time.time()
+            ok = satisfied(cc, w)
+            torch.cuda.synchronize()
+            t_check = time.time() - t
+            if not bool(ok.all()):
+                raise AssertionError(f"{name}: the card's witness does not satisfy the R1CS")
+            for b in range(BATCH):
+                got = [int(v) for v in LB.limbs_to_ints(w[:, 1 : cc.n_public + 1, b])]
+                if got != host_publics(kind, b):
+                    raise AssertionError(f"{name}, email {b}: publics {got} differ from the host's")
+            t = time.time()
+            pk = groth16_setup_cached(cc, seed=1, cache_dir=cache_dir, device=dev)
+            torch.cuda.synchronize()
+            t_setup = time.time() - t
+            timers = {}
+            proofs, t_prove = counted(f"{name}_prove", lambda: prove_batch(
+                pk, cc, w, rng=random.Random(4), timers=timers, device=dev))
+            missing = [k for k, v in path_launches[f"{name}_prove"].items() if v == 0]
+            if missing:
+                raise AssertionError(f"{name}: kernels not launched by the prove: {missing}")
+            for proof, publics in proofs:
+                if not verify(pk.vk, proof, publics):
+                    raise AssertionError(f"{name}: a proof does not verify")
+                if verify(pk.vk, proof, [(publics[0] + 1) % F.R] + publics[1:]):
+                    raise AssertionError(f"{name}: a proof verifies with a tampered public")
+            log(f"phase 7 {name} (B={BATCH}): {cc.n_constraints} constraints, {cc.n_signals} "
+                f"signals, {cc.n_public} publics, {len(cc.steps)} witness steps, 2^"
+                f"{pk.domain_log2} domain; build {t_build:.2f} s, compile {t_compile:.2f} s, "
+                f"inputs {t_inputs:.3f} s; witness cold {t_cold:.3f} s, warm {t_warm:.3f} s "
+                f"({t_warm / BATCH * 1e3:.1f} ms per email; K1 "
+                f"{path_launches[f'{name}_witness']['mont_mul']}); satisfied on the card "
+                f"({t_check:.2f} s), publics equal the host's; setup (groth16_setup_cached, "
+                f"miss) {t_setup:.2f} s; prove_batch {t_prove:.2f} s, proofs verify, tampered "
+                f"public refused; timers {json.dumps(timers)}; launches "
+                f"{json.dumps(path_launches[f'{name}_prove'])}; {time.time() - t_c:.1f} s")
+            del pk, cc, w, inputs, proofs
+            torch.cuda.empty_cache()
+
+    # remove_soft_line_breaks at 448/192 on quoted-printable bodies
+    t = time.time()
+    soft = [signer.sign_email(subject="Soft breaks", body=SOFT_BODY),
+            signer.sign_email(subject="Soft breaks two", body=SOFT_BODY.replace(b"here", b"there"))]
+    soft_cfg = EmailVerifierConfig(*SMALL_LENGTHS, remove_soft_line_breaks=True)
+    soft_args = InputGenArgs(max_headers_length=SMALL_LENGTHS[0], max_body_length=SMALL_LENGTHS[1],
+                              remove_soft_line_breaks=True)
+    soft_raws = [generate_email_verifier_inputs(e, signer.resolver(), soft_args) for e in soft]
+    for raw in soft_raws:
+        body = bytes(int(v) for v in raw["emailBody"])
+        if body.count(b"=\r\n") < 2 or b"=\r\n" in bytes(int(v) for v in raw["decodedEmailBodyIn"]):
+            raise AssertionError("soft line breaks: the body holds no breaks, or the decoded one does")
+    cc = build_email_verifier(soft_cfg).cs.compile()
+    n_plain = len(build_email_verifier(EmailVerifierConfig(*SMALL_LENGTHS)).cs.compile().steps)
+    soft_inputs = prepare_inputs(soft_raws, soft_cfg, device=dev)
+    for _ in range(2):  # cold (the steps' constants move to the card), then warm
+        w_card, t_soft = counted("soft_witness", lambda: cc.eval_witness(
+            soft_inputs, BATCH, device=dev))
+    t_cpu = time.time()
+    w_cpu = cc.eval_witness(prepare_inputs(soft_raws, soft_cfg, device="cpu"), BATCH, device="cpu")
+    t_cpu = time.time() - t_cpu
+    if not torch.equal(w_card.cpu(), w_cpu):
+        raise AssertionError("soft line breaks: the card's witness differs from the CPU's")
+    if not bool(satisfied(cc, w_card).all()):
+        raise AssertionError("soft line breaks: the card's witness does not satisfy the R1CS")
+    n_full = len(build_email_verifier(EmailVerifierConfig(
+        *FULL640_LENGTHS, remove_soft_line_breaks=True)).cs.steps)
+    log(f"  remove_soft_line_breaks at {SMALL_LENGTHS[0]}/{SMALL_LENGTHS[1]} (B={BATCH}, two "
+        f"quoted-printable breaks per body): {len(cc.steps)} witness steps ({n_plain} without "
+        f"the flag; at 640/768 {n_full} against {full640_steps}); witness on the card warm "
+        f"{t_soft:.3f} s (K1 {path_launches['soft_witness']['mont_mul']}), equal to the CPU's "
+        f"limb for limb (CPU {t_cpu:.1f} s); satisfied on the card; {time.time() - t:.1f} s")
+    del cc, w_card, w_cpu
+    log(f"phase 7: {time.time() - t0:.1f} s")
+
+    # -- 8. results ------------------------------------------------------------
     line = {"kernels": [
         {
             "name": name,
@@ -650,6 +901,10 @@ def main() -> int:
             "launches_bucket": bucket_launches[name],
             "launches_witness": witness_launches[name],
             "launches_email": email_launches[name],
+            **{f"launches_{label}": path_launches[label][name]
+               for label in ("key_load", "zkey_write", "zkey_read")},
+            **{f"launches_{label}_prove": path_launches[f"{label}_prove"][name]
+               for label in ("full640reveal", "sha640", "rsa2048")},
             **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},
         }
         for name, r in results.items()

@@ -125,3 +125,37 @@ def test_witness_on_card_equals_cpu(dev):
     assert FK.LAUNCHES["mont_mul"] > before
     w_cpu = cc.eval_witness({k: torch.as_tensor(v) for k, v in arrs.items()}, 2, device="cpu")
     assert torch.equal(w_card.cpu(), w_cpu)
+
+
+def test_zkey_and_chunks_on_card_equal_cpu(dev, tmp_path):
+    """The .zkey conversions (affine form, the 2^256 / 2^264 rescaling, the
+    byte repacking, the coefficient section) give the same bytes and the
+    same tables on the card as on the CPU, and a chunked export of a card
+    key loads onto the CPU to equal limbs. The key is a setup on the card
+    of a 2^10 synthetic circuit, its points projective with z != 1."""
+    from zkemail_tpu_torch.prover import artifacts as TA
+    from zkemail_tpu_torch.prover import zkey as TZ
+    from zkemail_tpu_torch.prover.setup import groth16_setup
+    from zkemail_tpu_torch.scripts.synthetic_r1cs import make_circuit
+
+    circ = make_circuit(1000, 960, seed=1)
+    pk = groth16_setup(circ.r1cs, seed=3, device=dev)
+
+    def tables(key):
+        return [c.cpu() for q in TA.QUERIES for v in getattr(key, q).values()
+                for c in (v if isinstance(v, tuple) else (v,))]
+
+    before = FK.LAUNCHES["mont_mul"]
+    blob = TZ.write_zkey(pk, circ.r1cs)
+    assert FK.LAUNCHES["mont_mul"] > before
+    pk_card, coeffs_card = TZ.read_zkey(blob, device=dev)
+    pk_cpu, coeffs_cpu = TZ.read_zkey(blob, device="cpu")
+    assert pk_card.device.type == "cuda" and pk_card.n_constraints == circ.r1cs.n_constraints
+    assert all(torch.equal(a, b) for a, b in zip(tables(pk_card), tables(pk_cpu)))
+    for m in "AB":
+        for a, b in zip(coeffs_card[m], coeffs_cpu[m]):
+            assert list(a) == list(b)
+    assert TZ.write_zkey(pk_cpu, circ.r1cs) == blob
+    TA.export_chunked(pk, str(tmp_path), name="k")
+    loaded = TA.load_chunked(str(tmp_path), name="k", device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(tables(loaded), tables(pk)))

@@ -4,7 +4,8 @@ One case each at B = 1, header 448 / body 192: ``ignore_body_hash_check``
 (no body inputs), and header plus body masking with the body check on. For
 each, the compiled R1CS and the witness equal the JAX package's exactly,
 the witness satisfies the R1CS, and the masked outputs are the masked bytes.
-``remove_soft_line_breaks`` is not ported and raises."""
+``remove_soft_line_breaks`` builds the JAX circuit (its witness is checked
+in tests/test_torch_email_helpers.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +83,16 @@ def test_header_and_body_masking(signer):
 
 
 def test_soft_line_breaks_not_ported():
-    with pytest.raises(NotImplementedError, match="email_helpers"):
-        build_email_verifier(EmailVerifierConfig(max_headers_length=HL, max_body_length=BL,
-                                                 remove_soft_line_breaks=True))
+    """The flag is ported now (its witness is held to the JAX package's in
+    tests/test_torch_email_helpers.py): it builds the JAX circuit, with
+    decodedEmailBodyIn as an input and public after the three outputs."""
+    handles = build_email_verifier(EmailVerifierConfig(
+        max_headers_length=HL, max_body_length=BL, remove_soft_line_breaks=True))
+    cc = handles.cs.compile()
+    jcc = j_build(JConfig(max_headers_length=HL, max_body_length=BL,
+                          remove_soft_line_breaks=True)).cs.compile()
+    assert (cc.n_constraints, cc.n_signals, cc.n_public) == (
+        jcc.n_constraints, jcc.n_signals, jcc.n_public)
+    assert cc.n_public == 3 + BL
+    decoded = next(b for b in cc.input_bindings if b.name == "decodedEmailBodyIn")
+    assert list(cc.perm[decoded.signals.idx]) == list(range(4, 4 + BL))

@@ -134,3 +134,193 @@ def test_ed25519_signature_raises_not_implemented(port_signer):
     eml = port_signer.sign_email().replace(b"a=rsa-sha256", b"a=ed25519-sha256")
     with pytest.raises(NotImplementedError, match="ed25519"):
         t_verify(eml, port_signer.resolver())
+
+
+# ---------------------------------------------------------------------------
+# Strict DER: the port refuses the keys cryptography refuses (JAX package)
+# ---------------------------------------------------------------------------
+
+def _der(tag: int, body: bytes, long_form: int = 0) -> bytes:
+    n = len(body)
+    if long_form:
+        return bytes([tag, 0x80 | long_form]) + n.to_bytes(long_form, "big") + body
+    if n < 0x80:
+        return bytes([tag, n]) + body
+    nb = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([tag, 0x80 | len(nb)]) + nb + body
+
+
+def _uint(x: int) -> bytes:
+    return _der(0x02, x.to_bytes(x.bit_length() // 8 + 1, "big"))
+
+
+def _spki(key_body: bytes) -> bytes:
+    alg = _der(0x30, _der(0x06, bytes.fromhex("2a864886f70d010101")) + _der(0x05, b""))
+    return _der(0x30, alg + _der(0x03, b"\x00" + key_body))
+
+
+def _bad_keys(n: int, e: int) -> dict:
+    return {
+        # the modulus without its leading 0x00: a negative INTEGER
+        "negative_modulus": _spki(_der(0x30, _der(0x02, n.to_bytes(256, "big")) + _uint(e))),
+        "negative_exponent": _spki(_der(0x30, _uint(n) + _der(0x02, b"\xff"))),
+        "non_minimal_integer": _spki(_der(0x30, _der(0x02, b"\x00" + n.to_bytes(257, "big"))
+                                          + _uint(e))),
+        "long_form_short_length": _spki(_der(0x30, _uint(n) + _der(0x02, e.to_bytes(3, "big"),
+                                                                   long_form=1))),
+    }
+
+
+@pytest.mark.parametrize("case", ["negative_modulus", "negative_exponent",
+                                  "non_minimal_integer", "long_form_short_length"])
+def test_der_reader_refuses_what_jax_refuses(port_signer, case):
+    """Each malformed SPKI is refused by both packages: EINVALIDVAL when
+    strict, None otherwise; the well-formed key parses in both."""
+    from zkemail_tpu.helpers.dkim import DKIMError as JDKIMError
+
+    n, e = port_signer.public_key
+    txt = "v=DKIM1; k=rsa; p=" + base64.b64encode(_bad_keys(n, e)[case]).decode()
+    assert t_parse_txt(txt) is None and j_parse_txt(txt) is None
+    with pytest.raises(JDKIMError) as jerr:
+        j_parse_txt(txt, strict=True)
+    with pytest.raises(DKIMError) as terr:
+        t_parse_txt(txt, strict=True)
+    assert terr.value.code == jerr.value.code == "EINVALIDVAL"
+    good = "v=DKIM1; k=rsa; p=" + base64.b64encode(_spki(_der(0x30, _uint(n) + _uint(e)))).decode()
+    assert t_parse_txt(good, strict=True) == j_parse_txt(good, strict=True) == (n, e)
+
+
+# ---------------------------------------------------------------------------
+# The a= tag, the sanitizer retries and the tools module
+# ---------------------------------------------------------------------------
+
+def _resign(signer, eml: bytes, old: bytes, new: bytes) -> bytes:
+    """eml with `old` replaced by `new` in its DKIM-Signature header and the
+    signature made anew over the changed header (the port's signer key)."""
+    from zkemail_tpu_torch.helpers.dkim import build_signature_base, parse_message, parse_tags
+    from zkemail_tpu_torch.helpers.testkit import pkcs1v15_sha256_sign
+
+    head, body = eml.split(b"\r\n\r\n", 1)
+    lines = head.split(b"\r\n")
+    i = next(k for k, ln in enumerate(lines) if ln.lower().startswith(b"dkim-signature:"))
+    unsigned = lines[i].replace(old, new).split(b" b=")[0] + b" b="
+    raw = b"\r\n".join(lines[:i] + [unsigned] + lines[i + 1:]) + b"\r\n\r\n" + body
+    parsed = parse_message(raw)
+    sig_raw = next(r for (nm, r, v) in parsed.headers if nm == "dkim-signature")
+    base = build_signature_base(parsed, sig_raw, parse_tags(sig_raw.split(b":", 1)[1]))
+    sig = pkcs1v15_sha256_sign(signer.public_key[0], signer._d, base)
+    lines[i] = unsigned + base64.b64encode(sig)
+    return b"\r\n".join(lines) + b"\r\n\r\n" + body
+
+
+@pytest.mark.parametrize("algo", [b"RSA-SHA256", b"ED25519-SHA256"])
+def test_upper_case_algorithm_refused_as_jax(port_signer, algo):
+    """a= is compared case-sensitively after validate_algorithm: an
+    upper-case tag is EINVALIDALGO in both packages, never verified nor
+    NotImplementedError."""
+    from zkemail_tpu.helpers.dkim import DKIMError as JDKIMError
+
+    eml = _resign(port_signer, port_signer.sign_email(), b"a=rsa-sha256", b"a=" + algo)
+    assert b"a=" + algo in eml
+    with pytest.raises(JDKIMError) as jerr:
+        j_verify(eml, port_signer.resolver())
+    with pytest.raises(DKIMError) as terr:
+        t_verify(eml, port_signer.resolver())
+    assert terr.value.code == jerr.value.code == "EINVALIDALGO"
+    # the same email re-signed with the lower-case tag verifies in both
+    ok = _resign(port_signer, eml, b"a=" + algo, b"a=rsa-sha256")
+    assert t_verify(ok, port_signer.resolver()).algo == j_verify(ok, port_signer.resolver()).algo
+
+
+def _mangled(signer, case: str) -> bytes:
+    if case == "remove_labels":
+        eml = signer.sign_email(subject="Hello from the card")
+        return eml.replace(b"Subject: Hello", b"Subject: [ext] Hello", 1)
+    if case == "bare_lf":
+        return signer.sign_email().replace(b"\r\n", b"\n")
+    if case == "revert_google_message_id":
+        eml = signer.sign_email()
+        orig = b"<test-12345@" + signer.domain.encode() + b">"
+        return eml.replace(b"Message-ID: " + orig, b"Message-ID: <fwd-1@mail.gmail.com>\r\n"
+                           b"X-Google-Original-Message-ID: " + orig, 1)
+    if case == "sanitize_tabs":
+        eml = signer.sign_email(body=b"col1\tcol2\r\n")
+        return eml.replace(b"col1\tcol2", b"col1=09col2")
+    if case == "clean":
+        return signer.sign_email(subject="untouched")
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,applied", [
+    ("clean", None), ("remove_labels", "remove_labels"),
+    ("bare_lf", None),  # repaired by parse_message's line-ending normalization
+    ("revert_google_message_id", "revert_google_message_id"),
+    ("sanitize_tabs", "sanitize_tabs")])
+def test_sanitizer_retries_equal_jax(port_signer, case, applied):
+    """verify_dkim_signature with its sanitizer retries: the port's result
+    equals the JAX package's field by field (applied_sanitization,
+    status, auth_results and circuit_provable included); without the
+    retries a mangled email fails alike in both."""
+    import dataclasses
+
+    eml = _mangled(port_signer, case)
+    want = j_verify(eml, port_signer.resolver())
+    got = t_verify(eml, port_signer.resolver())
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.applied_sanitization == applied
+    assert got.circuit_provable and got.auth_results.startswith("dkim=pass")
+    if want.applied_sanitization is not None:
+        from zkemail_tpu.helpers.dkim import DKIMError as JDKIMError
+
+        with pytest.raises(JDKIMError) as jerr:
+            j_verify(eml, port_signer.resolver(), enable_sanitization=False)
+        with pytest.raises(DKIMError) as terr:
+            t_verify(eml, port_signer.resolver(), enable_sanitization=False,
+                     fall_back_to_maybe_expired_keys=True)
+        assert terr.value.code == jerr.value.code
+
+
+def test_unrepairable_email_raises_the_unsanitized_error(port_signer):
+    eml = port_signer.sign_email().replace(b"It proves", b"It proved")
+    from zkemail_tpu.helpers.dkim import DKIMError as JDKIMError
+
+    with pytest.raises(JDKIMError) as jerr:
+        j_verify(eml, port_signer.resolver())
+    with pytest.raises(DKIMError) as terr:
+        t_verify(eml, port_signer.resolver())
+    assert terr.value.code == jerr.value.code == "EBODYHASH"
+
+
+def test_tools_equal_jax():
+    """The port's tools module on the cases of the JAX package's tools tests."""
+    import zkemail_tpu.helpers.tools as JT
+    import zkemail_tpu_torch.helpers.tools as TT
+
+    for d in ("mail.google.com", "google.com", "a.b.co.uk", "news.bbc.co.uk", "com",
+              "co.uk", "", "x.y.com.au"):
+        assert TT.psl_get(d) == JT.psl_get(d)
+    for args in (("mail.example.com", ["example.com"]), ("example.com", ["mailer.example.com"]),
+                 ("example.com", ["other.org"]), ("sub.example.com", ["sub.example.com"], True),
+                 ("sub.example.com", ["example.com"], True),
+                 ("news.bbc.co.uk", ["www.bbc.co.uk"]), ("news.bbc.co.uk", "bbc2.co.uk")):
+        assert TT.get_alignment(*args) == JT.get_alignment(*args)
+    for d in ("EXAMPLE.Com ", "bücher.example", None):
+        assert TT.format_domain(d) == JT.format_domain(d)
+    status = {"result": "pass", "comment": "body hash ok)",
+              "header": {"i": "@example.com", "s": "sel1", "a": "rsa-sha256", "b": ""}}
+    for s in (status, None, {"result": "fail", "policy": {"x": "has space"}}):
+        assert TT.format_auth_header_row("dkim", s) == JT.format_auth_header_row("dkim", s)
+    for v in ("simple-token", "has space", 'q"uote', "a)b\\c", "\x01ctl"):
+        assert TT.escape_prop_value(v) == JT.escape_prop_value(v)
+        assert TT.escape_comment_value(v) == JT.escape_comment_value(v)
+    for algo, strict in (("rsa-sha256", False), ("ed25519-sha256", False), ("rsa-sha1", False),
+                         ("rsa-sha1", True), ("dsa-sha256", False), ("rsasha256", False),
+                         ("rsa-md5", False), ("", False), ("RSA-SHA256", True)):
+        outcomes = []
+        for mod in (JT, TT):
+            try:
+                mod.validate_algorithm(algo, strict=strict)
+                outcomes.append(None)
+            except ValueError as exc:
+                outcomes.append((exc.code, str(exc)))
+        assert outcomes[0] == outcomes[1], algo

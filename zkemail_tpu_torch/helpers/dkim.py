@@ -2,10 +2,10 @@
 
 The port of ``zkemail_tpu/helpers/dkim.py``: parse -> canonicalize ->
 body-hash check -> signature base reconstruction -> RSA-SHA256 verify with
-multi-key trial, returning the byte buffers that feed the circuit inputs.
+multi-key trial, returning the byte buffers that feed the circuit inputs,
+with the JAX package's sanitizer retries and Authentication-Results row.
 RSA verification is pure integer arithmetic. Not ported: ed25519-sha256
-signatures (``NotImplementedError``; the circuit proves RSA only), the
-sanitizer retries and the Authentication-Results row.
+signatures (``NotImplementedError``; the circuit proves RSA only).
 """
 
 from __future__ import annotations
@@ -167,7 +167,13 @@ class DKIMVerificationResult:
     algo: str
     format: str  # canonicalization c= tag
     modulus_length: int
+    applied_sanitization: str | None = None
     status: dict = field(default_factory=dict)
+    auth_results: str | None = None  # Authentication-Results row (tools.ts:416)
+    # only rsa-sha256 signatures verify in the port, and each can feed the
+    # RSA-65537 circuit: always True (the JAX package's ed25519 results
+    # carry False)
+    circuit_provable: bool = True
 
 
 class DKIMError(Exception):
@@ -243,6 +249,8 @@ def verify_dkim_signature(
     raw_email: bytes,
     resolver,
     domain: str | None = None,
+    enable_sanitization: bool = True,
+    fall_back_to_maybe_expired_keys: bool = False,
     skip_body_hash: bool = False,
 ) -> DKIMVerificationResult:
     """Full DKIM verification. resolver: (domain, selector) -> [(n, e), ...].
@@ -252,12 +260,41 @@ def verify_dkim_signature(
     a signature by an unrelated domain must not authenticate the mail.
     `skip_body_hash` mirrors the reference's skipBodyHashCheck arg (bodyless
     emails, dkim.test.ts "should skip body-hash verification").
+    `fall_back_to_maybe_expired_keys` is accepted and not read, as in the
+    JAX package.
+
+    On signature failure, retries the email sanitizers
+    (packages/helpers/src/dkim/sanitizers.ts:65) before giving up; the
+    error raised is the unsanitized attempt's.
     """
+    from .sanitizers import SANITIZERS
+    from .tools import format_auth_header_row, get_alignment
+
     if not domain:
         domain = extract_from_domain(raw_email)
         if not domain:
             raise DKIMError("ENOFROM", "could not determine From: domain")
-    return _try_verify(raw_email, resolver, domain, skip_body_hash)
+
+    attempts = [(None, raw_email)]
+    if enable_sanitization:
+        attempts += [(s.__name__, s(raw_email)) for s in SANITIZERS]
+    last_err: Exception | None = None
+    for name, candidate in attempts:
+        if candidate is None:
+            continue
+        try:
+            res = _try_verify(candidate, resolver, domain, skip_body_hash)
+        except DKIMError as exc:
+            if last_err is None or name is None:
+                last_err = exc
+            continue
+        res.applied_sanitization = name
+        res.status["aligned"] = get_alignment(domain, [res.signing_domain])
+        res.status.setdefault(
+            "header", {"i": f"@{res.signing_domain}", "s": res.selector, "a": res.algo})
+        res.auth_results = format_auth_header_row("dkim", res.status)
+        return res
+    raise last_err if last_err else DKIMError("ENOSIG", "no DKIM signature found")
 
 
 def _try_verify(
@@ -295,13 +332,20 @@ def _verify_one(
     if "v" in tags and tags["v"].strip() != "1":
         raise DKIMError("EINVALIDVER", f"unknown signature version {tags['v']!r}")
     algo = tags.get("a", "rsa-sha256")
-    if algo.lower() == "ed25519-sha256":
+    from .tools import validate_algorithm
+
+    try:
+        validate_algorithm(algo)
+    except ValueError as exc:
+        raise DKIMError("EINVALIDALGO", str(exc)) from exc
+    # case-sensitive, as the JAX package: a= is a lower-case token
+    if algo not in ("rsa-sha256", "ed25519-sha256"):
+        raise DKIMError("EINVALIDALGO", f"unsupported algorithm {algo}")
+    if algo == "ed25519-sha256":
         raise NotImplementedError(
             "ed25519-sha256 DKIM signatures are not ported; the circuit proves "
             "rsa-sha256 only"
         )
-    if algo.lower() != "rsa-sha256":
-        raise DKIMError("EINVALIDALGO", f"unsupported algorithm {algo}")
     canon = tags.get("c", "simple/simple")
     parts = canon.split("/")
     header_canon = parts[0] or "simple"

@@ -20,7 +20,10 @@ RSA_ENCRYPTION_OID = bytes.fromhex("2a864886f70d010101")
 
 
 def _der_read(buf: bytes, pos: int) -> tuple[int, bytes, int]:
-    """One DER element at buf[pos:] -> (tag, contents, position after it)."""
+    """One DER element at buf[pos:] -> (tag, contents, position after it).
+
+    Strict DER, as ``cryptography`` reads a key: the length takes the short
+    form below 128 and otherwise the fewest bytes of the long form."""
     if pos + 2 > len(buf):
         raise ValueError("truncated DER element")
     tag, n = buf[pos], buf[pos + 1]
@@ -30,6 +33,8 @@ def _der_read(buf: bytes, pos: int) -> tuple[int, bytes, int]:
         if k == 0 or k > 4 or pos + k > len(buf):
             raise ValueError("bad DER length")
         n = int.from_bytes(buf[pos : pos + k], "big")
+        if n < 0x80 or buf[pos] == 0:
+            raise ValueError("non-minimal DER length")
         pos += k
     if pos + n > len(buf):
         raise ValueError("truncated DER element")
@@ -45,10 +50,16 @@ def _der_seq(buf: bytes) -> list[tuple[int, bytes]]:
     return out
 
 
-def _der_int(tag: int, body: bytes) -> int:
+def _der_uint(tag: int, body: bytes) -> int:
+    """A non-negative DER INTEGER in its minimal encoding."""
     if tag != 0x02 or not body:
         raise ValueError("expected a DER INTEGER")
-    return int.from_bytes(body, "big", signed=True)
+    if len(body) > 1 and (body[0] == 0 and body[1] < 0x80
+                          or body[0] == 0xFF and body[1] >= 0x80):
+        raise ValueError("non-minimal DER INTEGER")
+    if body[0] & 0x80:
+        raise ValueError("negative RSA key component")
+    return int.from_bytes(body, "big")
 
 
 def rsa_from_der(der: bytes) -> tuple[int, int]:
@@ -58,7 +69,7 @@ def rsa_from_der(der: bytes) -> tuple[int, int]:
         raise ValueError("expected one DER SEQUENCE")
     items = _der_seq(body)
     if len(items) == 2 and items[0][0] == 0x02:  # RSAPublicKey
-        return _der_int(*items[0]), _der_int(*items[1])
+        return _der_uint(*items[0]), _der_uint(*items[1])
     if len(items) != 2 or items[0][0] != 0x30 or items[1][0] != 0x03:
         raise ValueError("not a SubjectPublicKeyInfo")
     alg = _der_seq(items[0][1])

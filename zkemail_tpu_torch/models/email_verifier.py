@@ -7,12 +7,10 @@ input/output surface as the reference (inputs named after CircuitInput,
 packages/helpers/src/input-generators.ts:6-19) plus the RSA advice inputs.
 
 Public outputs (in order): pubkeyHash, shaHi, shaLo, then optional
-maskedHeader / maskedBody.
+maskedHeader / decodedEmailBodyIn / maskedBody.
 
 The port of ``zkemail_tpu/models/email_verifier.py``: the same circuit, row
-for row, for every flag but ``remove_soft_line_breaks``, whose gadget
-(``gadgets/email_helpers.py``) is not ported; that flag raises
-``NotImplementedError``.
+for row, for every flag.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from ..circuits.builder import LC, ConstraintSystem, SignalVec
 from ..circuits.gadgets.arrays import assert_zero_padding
 from ..circuits.gadgets.base64 import base64_decode
 from ..circuits.gadgets.bytes import byte_mask
+from ..circuits.gadgets.email_helpers import remove_soft_line_breaks
 from ..circuits.gadgets.poseidon_gadget import poseidon_large
 from ..circuits.gadgets.regex import select_regex_reveal
 from ..circuits.gadgets.regex_dfa import dfa_match_gadget
@@ -72,10 +71,6 @@ class EmailVerifierHandles:
 
 
 def build_email_verifier(cfg: EmailVerifierConfig) -> EmailVerifierHandles:
-    if cfg.remove_soft_line_breaks:
-        raise NotImplementedError(
-            "remove_soft_line_breaks needs gadgets/email_helpers.py, not ported"
-        )
     cs = ConstraintSystem("email_verifier")
 
     header = cs.add_input("emailHeader", (cfg.max_headers_length,))
@@ -164,6 +159,12 @@ def build_email_verifier(cfg: EmailVerifierConfig) -> EmailVerifierHandles:
             for j in range(8):
                 byte_lc = byte_lc + body_digest[wi, (3 - pos) * 8 + j] * (1 << j)
             cs.enforce_equal(byte_lc, bh_decoded[b].lc())
+
+        if cfg.remove_soft_line_breaks:
+            decoded_in = cs.add_input("decodedEmailBodyIn", (cfg.max_body_length,))
+            with cs.scope("remove_soft_line_breaks"):
+                remove_soft_line_breaks(cs, body, decoded_in)
+            cs.mark_public(decoded_in)
 
         if cfg.enable_body_masking:
             bmask = cs.add_input("bodyMask", (cfg.max_body_length,))

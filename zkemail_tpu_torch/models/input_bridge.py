@@ -54,6 +54,8 @@ def prepare_inputs(batch_inputs: list[dict], cfg: EmailVerifierConfig, device=No
         out["emailBodyLength"] = u32_field("emailBodyLength")
         out["bodyHashIndex"] = u32_field("bodyHashIndex")
         out["precomputedSHA"] = u32_field("precomputedSHA", 32)
+        if cfg.remove_soft_line_breaks:
+            out["decodedEmailBodyIn"] = u32_field("decodedEmailBodyIn", cfg.max_body_length)
     if cfg.enable_header_masking:
         out["headerMask"] = u32_field("headerMask", cfg.max_headers_length)
     if cfg.enable_body_masking:

@@ -21,8 +21,12 @@ process memory: fine for proving infrastructure and benchmarks.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import random
+import shutil
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -222,3 +226,44 @@ def groth16_setup(cc, seed: int = 0, device=None) -> ProvingKey:
         n_constraints=cc.n_constraints,
         device=dev,
     )
+
+
+def setup_cache_key(cc, seed: int) -> str:
+    """The JAX package's CRS cache key for (circuit, seed): name, counts, a
+    digest of the constraint coefficients and the seed, so any circuit
+    change misses."""
+    h = hashlib.sha256()
+    for rows, cols, cfs in (cc.A, cc.B, cc.C):
+        h.update(np.ascontiguousarray(rows).tobytes())
+        h.update(np.ascontiguousarray(cols).tobytes())
+        h.update(len(cfs).to_bytes(8, "little"))
+        for cf in list(cfs[:64]) + list(cfs[-64:]):
+            h.update((int(cf) % (1 << 256)).to_bytes(32, "little"))
+    digest = h.hexdigest()[:12]
+    return f"pk3_{cc.name}_{cc.n_constraints}_{cc.n_signals}_{digest}_{seed}"
+
+
+def groth16_setup_cached(cc, seed: int = 0, cache_dir: str | None = None,
+                         device=None) -> ProvingKey:
+    """Disk-cached setup: the CRS for a fixed (circuit, seed) is immutable.
+
+    The key is stored as a chunked artifact (``prover/artifacts.py``) in
+    the directory ``<cache_dir>/<setup_cache_key>.chunked``, beside which a
+    JAX package's ``.pkl`` of the same key can live; a hit loads it onto
+    `device` (default: CUDA) with an empty cache."""
+    from .artifacts import export_chunked, load_chunked
+
+    dev = resolve_device(device)
+    if not cache_dir:
+        return groth16_setup(cc, seed, device=dev)
+    path = Path(cache_dir) / f"{setup_cache_key(cc, seed)}.chunked"
+    if (path / "pk.manifest.json").exists():
+        return load_chunked(str(path), "pk", device=dev)
+    pk = groth16_setup(cc, seed, device=dev)
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    export_chunked(pk, str(tmp), name="pk")
+    try:
+        tmp.rename(path)
+    except OSError:  # another process stored the same key first
+        shutil.rmtree(tmp, ignore_errors=True)
+    return pk
