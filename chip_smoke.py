@@ -14,9 +14,12 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      again at the widths the two MSM routes launch them at (the sort
      route's level-1 scans of the full-width h and dense b2 MSMs, its
      threshold terms, its per-row final scans, the bucket route's running
-     sums and both routes' Horner steps), the widths past the bulk one
-     checked against the plain version slice by slice; times per launch
-     beside the plain version's;
+     sums and both routes' Horner steps) and at those of phase 8's sharded
+     path on this machine's meshes (per rank the level-1 scans of the
+     dense h, a, b1 and b2 MSMs over its shard, threshold terms, final
+     scans, the reduction of the gathered window sums and the Horner
+     steps), the widths past the bulk one checked against the plain
+     version slice by slice; times per launch beside the plain version's;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
      two prove_batch calls at B = 2 on one key with witnesses from two
      seeds (each signal MSM's outcome under the signal plan: hit, or miss),
@@ -58,13 +61,24 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      by groth16_setup_cached and proved, the proofs verifying and a tampered
      public refused; and the EmailVerifier's remove_soft_line_breaks at
      448/192 on bodies with quoted-printable breaks: the card's witness
-     equals the CPU's and satisfies the R1CS, its step count printed.
+     equals the CPU's and satisfies the R1CS, its step count printed;
+  8. the multi-GPU prove (scripts/sharded_prove.py::run_meshes): phase 5's
+     key (phase 6's chunk export), circuit and witnesses through files to
+     ranks spawned by parallel/launch.py, each proving the batch with
+     prove_batch(mesh=): with N >= 2 cards NCCL over N ranks at
+     make_mesh(N) and at (1, N); with one card NCCL at world size 1 (mesh
+     1 x 1), then two gloo ranks sharing the card at (1, 2), so that the
+     two-way sharded NTT and the per-shard MSMs with their gathers run at
+     full width. Every rank's proofs equal phase 5's, verify and refuse a
+     tampered public, every rank launches K1, K2 and K3; one line per mesh
+     with the stage and gather seconds, launches and peak memory per rank.
 
 It then prints one JSON line with each kernel's numbers (launches: the sort
 route's prove in phase 4; launches_witness and launches_email: phase 5's
 witness and its prove; launches_key_load, launches_zkey_write and
 launches_zkey_read: phase 6's loaders; launches_<config>_prove: phase 7's
-proves), the card's name and power limit, and last
+proves; launches_sharded_prove: phase 8's, over all ranks and meshes), the
+card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure is an uncaught exception and a
 non-zero exit; without a CUDA device it exits 1 before printing any result.
 """
@@ -199,6 +213,9 @@ def main() -> int:
     from zkemail_tpu_torch.prover.artifacts import export_chunked, load_chunked
     from zkemail_tpu_torch.prover.setup import groth16_setup_cached
     from zkemail_tpu_torch.prover.zkey import read_zkey_file, write_zkey_file
+    from zkemail_tpu_torch.parallel.sharding import mesh_shape
+    from zkemail_tpu_torch.scripts.sharded_prove import (
+        mesh_configs, run_meshes, write_job_files)
 
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
@@ -328,15 +345,34 @@ def main() -> int:
     # points) of the h MSM and of the dense b2 fallback, its threshold terms
     # (rows x 2^(c-1)), the bucket route's running sums (64), the sort
     # route's per-row final scans (rows) and both routes' Horner steps (2).
-    rows = BATCH * MS.n_windows_for(MS.C_BITS_SORT)
+    # Then those of phase 8's sharded path on this machine's meshes
+    # (mesh_configs): a rank proves b = B / dp proofs over its 1 / msm of
+    # each query, so its rows are b * windows; the level-1 scans of its
+    # dense MSMs (the h block and the a, b1, b2 slices), its threshold
+    # terms and final scans, the rank-order reduction of the gathered
+    # window sums (the four G1 MSMs stacked, 4 x rows; b2, rows) and the
+    # Horner steps (4 b lanes on G1, b on G2).
+    nw = MS.n_windows_for(MS.C_BITS_SORT)
+    rows = BATCH * nw
 
-    def level1(n_points: int) -> int:
-        return rows * -(-n_points // MS.K_BLOCK)
+    def level1(n_points: int, n_rows: int = rows) -> int:
+        return n_rows * -(-n_points // MS.K_BLOCK)
 
+    g1_widths = [level1(H_POINTS), rows << (MS.C_BITS_SORT - 1), 64, rows, 2]
+    g2_widths = [level1(FULL640["n_signals"]), 64, rows, 2]
+    for _, world, dps in mesh_configs(torch.cuda.device_count()):
+        for dp in dps:
+            dp, msm = mesh_shape(world, dp)
+            b = BATCH // dp
+            r = b * nw
+            sig = level1(-(-FULL640["n_signals"] // msm), r)
+            g1_widths += [level1(H_POINTS // msm, r), sig, r << (MS.C_BITS_SORT - 1), r,
+                          4 * r, 4 * b]
+            g2_widths += [sig, r, b]
     route_widths = {
         "mont_mul": K1_WITNESS_WIDTHS,
-        "ec_add_g1": (level1(H_POINTS), rows << (MS.C_BITS_SORT - 1), 64, rows, 2),
-        "ec_add_g2": (level1(FULL640["n_signals"]), 64, rows, 2),
+        "ec_add_g1": tuple(dict.fromkeys(g1_widths)),
+        "ec_add_g2": tuple(dict.fromkeys(g2_widths)),
     }
 
     def check_sliced(name, kern, plain, p, q, neg, chunk: int) -> None:
@@ -707,6 +743,9 @@ def main() -> int:
     def dir_bytes(path) -> int:
         return sum(f.stat().st_size for f in Path(path).iterdir())
 
+    # phase 8's files: the chunk export, the circuit and the witnesses
+    mesh_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    mesh_dir = Path(mesh_tmp.name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_keys_") as tmp:
         tmp = Path(tmp)
         manifest, t_export = counted("export", lambda: export_chunked(pk, tmp / "chunks",
@@ -717,7 +756,9 @@ def main() -> int:
                                                                device=dev))
         if not keys_equal(pk_c, pk):
             raise AssertionError("the chunk-loaded key differs from the setup's")
-        shutil.rmtree(tmp / "chunks")
+        shutil.move(tmp / "chunks", mesh_dir / "chunks")
+        mesh_job = write_job_files(mesh_dir, cc, w, mesh_dir / "chunks", "full640")
+        full640_vk = pk.vk
         log(f"phase 6 keys from disk (full640): export_chunked {t_export:.2f} s ({stream} B "
             f"stream, {gz} B in {len(manifest['chunks'])} gzip chunks), load_chunked "
             f"{t_load:.2f} s (launches {json.dumps(path_launches['key_load'])}): equal tables")
@@ -884,7 +925,15 @@ def main() -> int:
     del cc, w_card, w_cpu
     log(f"phase 7: {time.time() - t0:.1f} s")
 
-    # -- 8. results ------------------------------------------------------------
+    # -- 8. the multi-GPU prove ------------------------------------------------------
+    t0 = time.time()
+    n_cards = torch.cuda.device_count()
+    sharded_launches = run_meshes(mesh_job, n_cards, email_proofs, full640_vk, card, log=log)
+    mesh_tmp.cleanup()
+    log(f"phase 8 multi-GPU prove ({n_cards} card{'s' if n_cards > 1 else ''}): launches "
+        f"over all ranks and meshes {json.dumps(sharded_launches)}; {time.time() - t0:.1f} s")
+
+    # -- 9. results ------------------------------------------------------------
     line = {"kernels": [
         {
             "name": name,
@@ -905,6 +954,7 @@ def main() -> int:
                for label in ("key_load", "zkey_write", "zkey_read")},
             **{f"launches_{label}_prove": path_launches[f"{label}_prove"][name]
                for label in ("full640reveal", "sha640", "rsa2048")},
+            "launches_sharded_prove": sharded_launches[name],
             **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},
         }
         for name, r in results.items()

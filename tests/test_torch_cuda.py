@@ -159,3 +159,32 @@ def test_zkey_and_chunks_on_card_equal_cpu(dev, tmp_path):
     TA.export_chunked(pk, str(tmp_path), name="k")
     loaded = TA.load_chunked(str(tmp_path), name="k", device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tables(loaded), tables(pk)))
+
+
+def test_second_card_proves_as_the_first(dev):
+    """A key set up and proved on cuda:1, from a process whose current card
+    is cuda:0, gives the proofs of cuda:0: every kernel launches on its
+    operands' card, and the devices compare equal however they are named."""
+    import random
+
+    from zkemail_tpu_torch.prover.groth16 import prove_batch
+    from zkemail_tpu_torch.prover.setup import groth16_setup
+    from zkemail_tpu_torch.scripts.synthetic_r1cs import make_circuit
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    circ = make_circuit(200, 180, seed=1)
+    w = circ.witness(2, seed=2)
+    got = {}
+    for card in ("cuda:0", "cuda:1"):
+        assert torch.cuda.current_device() == 0
+        pk = groth16_setup(circ.r1cs, seed=3, device=card)
+        assert pk.device == torch.device(card)
+        before = dict(FK.LAUNCHES)
+        proofs = prove_batch(pk, circ.r1cs, w, rng=random.Random(4), device=card)
+        assert all(FK.LAUNCHES[k] > before[k] for k in FK.LAUNCHES)
+        got[card] = [(p.a, p.b, p.c, tuple(pub)) for p, pub in proofs]
+    assert got["cuda:1"] == got["cuda:0"]
+    # an unindexed "cuda" names the current card, the key's device here
+    pk = groth16_setup(circ.r1cs, seed=3, device="cuda:0")
+    assert prove_batch(pk, circ.r1cs, w, rng=random.Random(4))[0][0].a == got["cuda:0"][0][0]

@@ -81,8 +81,9 @@ def _port_cc(cc):
                             n_signals=cc.n_signals, n_public=cc.n_public)
 
 
-def _carry_pk(pk):
-    """A JAX ProvingKey -> the port's, through numpy arrays and ints only."""
+def carry_arrays(pk) -> dict:
+    """A JAX ProvingKey as proving_key_from_arrays' arguments: numpy arrays
+    and ints only."""
     def g1(p):
         return None if p.inf else (p.x, p.y)
 
@@ -97,11 +98,14 @@ def _carry_pk(pk):
     points = {"alpha_g1": g1(pk.alpha_g1), "beta_g1": g1(pk.beta_g1),
               "delta_g1": g1(pk.delta_g1), "beta_g2": g2(pk.beta_g2),
               "delta_g2": g2(pk.delta_g2), "gamma_g2": g2(pk.vk.gamma_g2)}
-    return proving_key_from_arrays(
-        domain_log2=pk.domain_log2, n_public=pk.n_public,
-        n_constraints=pk.n_constraints, queries=queries, points=points,
-        ic=[g1(p) for p in pk.vk.ic], device="cpu",
-    )
+    return dict(domain_log2=pk.domain_log2, n_public=pk.n_public,
+                n_constraints=pk.n_constraints, queries=queries, points=points,
+                ic=[g1(p) for p in pk.vk.ic])
+
+
+def _carry_pk(pk):
+    """A JAX ProvingKey -> the port's, through numpy arrays and ints only."""
+    return proving_key_from_arrays(**carry_arrays(pk), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -622,8 +622,6 @@ class CompiledCircuit:
         step name up to its first ':'), the device synchronized after each
         step."""
         dev = resolve_device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
         for name, x in inputs.items():
             if x.device != dev:
                 raise ValueError(f"input {name} lives on {x.device}, witness asked for {dev}")
@@ -631,7 +629,8 @@ class CompiledCircuit:
         w = torch.zeros((L, self.n_signals, batch), dtype=torch.int32, device=dev)
         w[0, 0, :] = 1  # ONE
         env = Env(w, inputs, self.perm, consts)
-        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
         steps_s = {}
         for step, wb in zip(self.steps, self._wb):
             t0 = time.time()

@@ -8,14 +8,19 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 
-    Raises when CUDA is asked for (explicitly or by default) and there is no
-    CUDA device: the port never moves to the CPU on its own."""
+    A CUDA device without an index is the current one, ``cuda:<current>``,
+    so that devices compare equal however the caller named them. Raises
+    when CUDA is asked for (explicitly or by default) and there is no CUDA
+    device: the port never moves to the CPU on its own."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available; pass device='cpu' to run the plain "
-            "PyTorch versions of the kernels"
-        )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run the plain "
+                "PyTorch versions of the kernels"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -4,9 +4,9 @@ Each wrapper takes flat (22, n) int32 limb tensors (12-bit limbs, the JAX
 package's layout) and dispatches on the tensors' device alone:
 
 * a CUDA tensor launches the hand-written kernel of ``ops/csrc`` on the
-  current stream (K1 ``mont_mul.cu``, K2 ``ec_add_g1.cu``, K3
-  ``ec_add_g2.cu``), counts the launch in ``LAUNCHES`` and raises if the
-  launch is refused;
+  current stream of the tensors' device (K1 ``mont_mul.cu``, K2
+  ``ec_add_g1.cu``, K3 ``ec_add_g2.cu``), counts the launch in
+  ``LAUNCHES`` and raises if the launch is refused;
 * a CPU tensor runs the plain PyTorch version in this module.
 
 There is no fallback between the two. The kernels replace the Pallas
@@ -284,8 +284,11 @@ def _check_neg(neg: torch.Tensor, n: int, device) -> None:
         raise ValueError("neg must be contiguous")
 
 
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
+def _launch(name: str, device: torch.device, fn, *args) -> None:
+    """Launch on the operands' device: the C launchers use the calling
+    thread's current device, which need not be the operands'."""
+    with torch.cuda.device(device):
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
@@ -303,7 +306,7 @@ def mont_mul_flat(field: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if n:
         lib = kernel_build.library()
-        _launch("mont_mul", lib.zk_mont_mul, a.data_ptr(), b.data_ptr(),
+        _launch("mont_mul", a.device, lib.zk_mont_mul, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), n, FIELD_IDS[field], _stream(a))
     return out
 
@@ -319,7 +322,7 @@ def ec_add_g1_flat(p: dict, q: dict, neg: torch.Tensor) -> dict:
     out = {k: torch.empty_like(p[k]) for k in "xyz"}
     if n:
         lib = kernel_build.library()
-        _launch("ec_add_g1", lib.zk_ec_add_g1,
+        _launch("ec_add_g1", neg.device, lib.zk_ec_add_g1,
                 *[c.data_ptr() for c in coords], neg.data_ptr(),
                 *[out[k].data_ptr() for k in "xyz"], n, _stream(neg))
     return out
@@ -337,7 +340,7 @@ def ec_add_g2_flat(p: dict, q: dict, neg: torch.Tensor) -> dict:
     out = {k: (torch.empty_like(p[k][0]), torch.empty_like(p[k][1])) for k in "xyz"}
     if n:
         lib = kernel_build.library()
-        _launch("ec_add_g2", lib.zk_ec_add_g2,
+        _launch("ec_add_g2", neg.device, lib.zk_ec_add_g2,
                 *[c.data_ptr() for c in coords], neg.data_ptr(),
                 *[out[k][c].data_ptr() for k in "xyz" for c in (0, 1)],
                 n, _stream(neg))

@@ -340,14 +340,21 @@ def _rows_sum(ops, points: dict, mag: torch.Tensor, neg: torch.Tensor, K: int,
 
 
 def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS_SORT,
-               k_block: int = K_BLOCK, cutoff: int = 0, col_chunk: int = 0) -> dict:
+               k_block: int = K_BLOCK, cutoff: int = 0, col_chunk: int = 0,
+               tail: bool = True) -> dict:
     """Batched MSM with shared bases through the sort/telescope pipeline.
 
     The contract of ops.msm.msm_multi: scalars (L, B, n) standard-form Fr
-    limbs, points a projective batch (n,); returns the point batch (B,).
-    col_chunk: column slice width, 0 for none (exact: disjoint column
-    subsets sum to the same group element); cutoff: the width at which the
-    telescope stops (0: min(2^(c-1), 256))."""
+    limbs, points a projective batch (n,); returns the point batch (B,),
+    or with tail=False the per-window sums (B, n_windows) before the Horner
+    combination (window j weighs 2^(c j)). col_chunk: column slice width, 0
+    for none (exact: disjoint column subsets sum to the same group
+    element); cutoff: the width at which the telescope stops (0:
+    min(2^(c-1), 256)).
+
+    The JAX package's traced twin (``msm_sorted_traced``, for ``shard_map``
+    bodies) has no counterpart: this function runs eagerly on each rank of
+    a mesh (``parallel/sharding.py::sharded_sort_msm``)."""
     bsz, _ = _check_scalars("msm_sorted", scalars, points)
     nw = n_windows_for(c_bits)
     nb = 1 << (c_bits - 1)
@@ -355,7 +362,7 @@ def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS_SO
     total = _rows_sum(ops, points, mag, neg, k_block, cutoff or min(nb, FINAL_CUTOFF),
                       nb, col_chunk)
     total = map_coords(total, lambda c: c.reshape(L, bsz, nw))
-    return _horner_combine(ops, total, nw, c_bits)
+    return _horner_combine(ops, total, nw, c_bits) if tail else total
 
 
 # ---------------------------------------------------------------------------

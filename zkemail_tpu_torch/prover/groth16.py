@@ -19,6 +19,13 @@ The port of ``zkemail_tpu/prover/groth16.py`` (``prove_batch`` and
   3. batched affine conversion, then the r/s blinding on the host, in the
      JAX package's order, so a seeded ``random.Random`` gives the same
      proofs as the JAX prover.
+
+With a (dp, msm) mesh (``parallel/sharding.py``) ``prove_batch`` runs the
+JAX package's sharded path (``_prove_sharded``, ``_shard_crs``,
+``_h_stage_mesh_fn``, ``_msm_stage_sharded_fn``) on every rank of the
+mesh: the batch splits over "dp", the five MSMs (dense, no signal plan)
+and the h stage's NTTs over "msm", and the proofs equal the unsharded
+ones for every mesh shape.
 """
 
 from __future__ import annotations
@@ -37,7 +44,11 @@ from ..core.towers import Fq2
 from ..device import resolve_device
 from ..ops import ntt as NTT
 from ..ops import msm_sort as MS
-from ..ops.msm import map_coords
+from ..ops.msm import _first, concat_points, map_coords
+from ..parallel.sharding import (
+    axis_size, check_ntt_shards, combine_window_sums, dp_sharded_inputs, gather_points,
+    mesh_ntt_consts, shard_local_points, shard_window_sums, sharded_h_eval,
+)
 from .containers import Proof
 from .setup import ProvingKey, matrix_pack
 
@@ -221,7 +232,8 @@ def _marker(pk: ProvingKey, timers: dict | None):
     """mark(name): record the seconds since the previous mark (or since
     this call) as timers[name], after the device has finished; a no-op
     without timers."""
-    sync = torch.cuda.synchronize if pk.device.type == "cuda" else (lambda: None)
+    sync = ((lambda: torch.cuda.synchronize(pk.device)) if pk.device.type == "cuda"
+            else (lambda: None))
     t0 = [time.time()]
 
     def mark(name):
@@ -272,6 +284,152 @@ def prove_points(pk: ProvingKey, cc, witnesses: torch.Tensor, timers: dict | Non
                             witnesses.shape[2])
 
 
+# ---------------------------------------------------------------------------
+# the sharded prove on a (dp, msm) mesh (parallel/sharding.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_key(mesh) -> tuple:
+    return tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape)
+
+
+def _shard_crs(mesh, pk: ProvingKey) -> dict:
+    """This rank's "msm" slice of each of the five queries, with the padded
+    query length: {query: (points, n_pad)}. Each query is padded to a
+    multiple of the shard count with the identity, neutral under every
+    route (the JAX package pads with all-zero coordinates, which the
+    complete addition is not neutral to: the sort route never adds a
+    zero-scalar lane into a weighted sum, so its results stand). The
+    slices are copies, cached on the key for the last mesh it proved on."""
+    key = _mesh_key(mesh)
+    cached = pk.cache.get("shard_crs")
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    S = axis_size(mesh, "msm")
+    idx = mesh.get_local_rank("msm")
+    out = {}
+    for name in ("a_query", "b1_query", "b2_query", "c_query", "h_query"):
+        q = getattr(pk, name)
+        ops = CT.FQ2_OPS if name == "b2_query" else CT.FQ_OPS
+        n_pad = -(-_first(q).shape[1] // S) * S
+        out[name] = (shard_local_points(ops, q, n_pad, S, idx), n_pad)
+    pk.cache["shard_crs"] = (key, out)
+    return out
+
+
+def _mesh_ntt_consts(pk: ProvingKey, mesh) -> tuple:
+    """mesh_ntt_consts of the key's domain on its device (this shard's
+    four-step tables and the local NTT's plan), cached on the key for the
+    last mesh."""
+    key = _mesh_key(mesh)
+    cached = pk.cache.get("mesh_ntt")
+    if cached is None or cached[0] != key:
+        cached = (key, mesh_ntt_consts(mesh, pk.domain_log2, pk.device))
+        pk.cache["mesh_ntt"] = cached
+    return cached[1]
+
+
+def _h_stage_mesh(pk: ProvingKey, cc, w_loc: torch.Tensor, mesh,
+                  timers: dict | None) -> torch.Tensor:
+    """The h stage with its NTTs sharded over "msm": this rank's dp-local
+    witnesses (L, n_signals, b) -> its block of the h evaluations
+    (L, b, m / S), standard form, one proof at a time.
+
+    Each rank computes the QAP matvecs over the whole domain (as the JAX
+    package does) and keeps its block; a, b and c = a * b go through one
+    four-step iNTT -> sigma shift -> NTT (sharded_h_eval) as three lanes,
+    two gathers per proof."""
+    mats, _ = _prove_consts(cc, pk)
+    consts = _mesh_ntt_consts(pk, mesh)
+    m = 1 << pk.domain_log2
+    m2 = m // axis_size(mesh, "msm")
+    lo = mesh.get_local_rank("msm") * m2
+    nC, npub1 = pk.n_constraints, pk.n_public + 1
+    out = []
+    for i in range(w_loc.shape[2]):
+        w_mont = LB.to_mont(FS, w_loc[:, :, i])
+        aw = qap_matvec(mats["A"], w_mont, m)
+        bw = qap_matvec(mats["B"], w_mont, m)
+        aw[:, nC : nC + npub1] = w_mont[:, :npub1]
+        ab = torch.stack([aw[:, lo : lo + m2], bw[:, lo : lo + m2]], dim=2)
+        del aw, bw
+        blk = torch.cat([ab, LB.mont_mul(FS, ab[..., :1], ab[..., 1:])], dim=2)
+        e = sharded_h_eval(mesh, blk, pk.domain_log2, consts, timers)
+        h = LB.sub(FS, LB.mont_mul(FS, e[..., 0], e[..., 1]), e[..., 2])
+        out.append(LB.from_mont(FS, h))
+    return torch.stack(out, dim=1)
+
+
+def _msm_stage_sharded(pk: ProvingKey, mesh, w_t: torch.Tensor, h_t: torch.Tensor,
+                       mark, timers: dict | None) -> tuple:
+    """The five MSMs over this rank's query slices -> the G1 results
+    (h, a, b1, c stacked, (4 b,)) and b2 (b,), the same on every rank of
+    its "msm" group.
+
+    Each MSM is the shard_window_sums of its slice (a dense msm_sorted,
+    as the sharded path takes no signal plan, like the JAX package's), and
+    combine_window_sums gathers, reduces and Horner-combines them, the two
+    steps of parallel/sharding.py::sharded_sort_msm: the four G1 MSMs'
+    sums stacked in one call, b2's in another, so the tails cost two
+    chains of c * windows additions, not five. h_t is already this shard's
+    block, so the h MSM runs msm_sorted on it directly; the c MSM takes w_t[:, :, n_public + 1:] against the unpadded c
+    query."""
+    sharded = _shard_crs(mesh, pk)
+    S = axis_size(mesh, "msm")
+    idx = mesh.get_local_rank("msm")
+
+    def windows(ops, name, scal):
+        q, n_pad = sharded[name]
+        return shard_window_sums(ops, q, scal, n_pad, S, idx)
+
+    g1 = [MS.msm_sorted(CT.FQ_OPS, sharded["h_query"][0], h_t, tail=False)]
+    mark("msm_h_s")
+    g1.append(windows(CT.FQ_OPS, "a_query", w_t))
+    mark("msm_a_s")
+    b2 = windows(CT.FQ2_OPS, "b2_query", w_t)
+    mark("msm_b2_s")
+    g1.append(windows(CT.FQ_OPS, "b1_query", w_t))
+    mark("msm_b1_s")
+    g1.append(windows(CT.FQ_OPS, "c_query", w_t[:, :, pk.n_public + 1 :]))
+    mark("msm_c_s")
+    group = mesh.get_group("msm")
+    out = tuple(combine_window_sums(ops, sums, group, MS.C_BITS_SORT, timers)
+                for ops, sums in ((CT.FQ_OPS, concat_points(g1, dim=0)), (CT.FQ2_OPS, b2)))
+    mark("msm_tail_s")
+    return out
+
+
+def _prove_sharded(pk: ProvingKey, cc, witnesses: torch.Tensor, mesh,
+                   timers: dict | None):
+    """The device part of proving on a (dp, msm) mesh: witnesses
+    (L, n_signals, B), the whole batch on every rank -> the five
+    pre-blinding MSM results of the whole batch as host point lists, the
+    same on every rank. This rank proves its dp slice of the batch over
+    its msm slice of the queries; the h stage's NTTs shard over "msm" when
+    msm > 1 (else each rank runs the unsharded h stage on its slice); the
+    points are gathered over "dp" at the end."""
+    dp, S = axis_size(mesh, "dp"), axis_size(mesh, "msm")
+    bsz = witnesses.shape[2]
+    if bsz % dp:
+        raise ValueError(f"batch size {bsz} must be divisible by dp={dp}")
+    check_ntt_shards(pk.domain_log2, S)
+    mark = _marker(pk, timers)
+    w_loc = dp_sharded_inputs(mesh, {"w": witnesses})["w"]
+    if S > 1:
+        h_t, w_t = _h_stage_mesh(pk, cc, w_loc, mesh, timers), w_loc.movedim(2, 1)
+    else:
+        h_t, w_t = msm_scalars(pk, cc, w_loc)
+    mark("h_stage_s")
+    g1, b2 = _msm_stage_sharded(pk, mesh, w_t, h_t, mark, timers)
+    del h_t
+    group = mesh.get_group("dp")
+    b = bsz // dp
+    g1 = gather_points(g1, group, timers)  # per dp rank: h, a, b1, c of its b proofs
+    h, a, b1, c = (concat_points([map_coords(p, lambda t, k=k: t[:, k * b : (k + 1) * b])
+                                  for p in g1], dim=0) for k in range(4))
+    b2 = concat_points(gather_points(b2, group, timers), dim=0)
+    return _results_to_host(a, b2, b1, c, h, bsz)
+
+
 def blind(pk: ProvingKey, points, witnesses: torch.Tensor, rng: random.Random):
     """The five pre-blinding MSM results of a batch (as prove_points returns
     them) -> one (proof, public_inputs) per batch element: the r/s blinding
@@ -306,6 +464,7 @@ def prove_batch(
     rng: random.Random | None = None,
     timers: dict | None = None,
     device=None,
+    mesh=None,
 ) -> list[tuple[Proof, list[int]]]:
     """Prove a batch of witnesses (L, n_signals, B) (standard-form limbs,
     numpy or tensor) on `device` (default: CUDA; the key must live there).
@@ -313,7 +472,16 @@ def prove_batch(
     Returns one (proof, public_inputs) per batch element. `timers`, when
     given, receives the stage times h_stage_s and msm_{h,a,b2,b1,c}_s, and
     plan: each signal MSM's outcome under the key's signal plan ("hit", or
-    "miss": proved dense, plan rebuilt)."""
+    "miss": proved dense, plan rebuilt).
+
+    With `mesh` (a (dp, msm) DeviceMesh, parallel/sharding.py::make_mesh),
+    every rank of the mesh calls prove_batch with the whole batch: the
+    batch shards over "dp" (B divisible by dp), the five MSMs over "msm"
+    and, when msm > 1, the h polynomial's NTTs over "msm" (msm a power of
+    two). Every rank blinds the whole batch with its own rng, so under
+    the same seeded rng every rank returns the same proofs, bit for bit
+    those of the unsharded prove. `timers` then also holds gather_s, the
+    seconds in collectives, and no plan (the sharded MSMs are dense)."""
     dev = resolve_device(device)
     if pk.device != dev:
         raise ValueError(f"proving key lives on {pk.device}, prove asked for {dev}")
@@ -323,7 +491,12 @@ def prove_batch(
             f"witnesses must be (L={L}, n_signals={cc.n_signals}, B); "
             f"got {tuple(witnesses.shape)}"
         )
-    points = prove_points(pk, cc, witnesses, timers)
+    if mesh is None:
+        points = prove_points(pk, cc, witnesses, timers)
+    elif mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot prove on {dev}")
+    else:
+        points = _prove_sharded(pk, cc, witnesses, mesh, timers)
     return blind(pk, points, witnesses, rng or random.SystemRandom())
 
 
