@@ -8,7 +8,9 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
   1. card and build: the card's name and power limit, versions, build time
      and what ptxas reported for each kernel;
   2. each kernel against its plain PyTorch version on the card, exactly:
-     K1 mont_mul (Fq and Fr, 2^20 lanes, with 0, 1 and p - 1), K2 ec_add_g1
+     K1 mont_mul (Fq and Fr, 2^20 lanes, with 0, 1 and p - 1; then at the
+     witness's widths and at phase 9's Poseidon widths, up to 6,553,600
+     lanes), K2 ec_add_g1
      (2^18 lanes) and K3 ec_add_g2 (2^16 lanes) with identity operands,
      P + P, P + (-P), negated lanes and coordinates 0 and p - 1; K2 and K3
      again at the widths the two MSM routes launch them at (the sort
@@ -18,8 +20,10 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      path on this machine's meshes (per rank the level-1 scans of the
      dense h, a, b1 and b2 MSMs over its shard, threshold terms, final
      scans, the reduction of the gathered window sums and the Horner
-     steps), the widths past the bulk one checked against the plain
-     version slice by slice; times per launch beside the plain version's;
+     steps) and at prim_bench's (2^20 lanes and its tree reduction's
+     halvings), the widths past the bulk one as the bulk lanes tiled, each
+     tile held to the plain version's; times per launch beside the plain
+     version's;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
      two prove_batch calls at B = 2 on one key with witnesses from two
      seeds (each signal MSM's outcome under the signal plan: hit, or miss),
@@ -71,13 +75,28 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      two-way sharded NTT and the per-shard MSMs with their gathers run at
      full width. Every rank's proofs equal phase 5's, verify and refuse a
      tampered public, every rank launches K1, K2 and K3; one line per mesh
-     with the stage and gather seconds, launches and peak memory per rank.
+     with the stage and gather seconds, launches and peak memory per rank;
+  9. tools and registry: (a) pubkey_hashes of 65,536 2048-bit moduli (a
+     registry crawl's batch) on the card, equal to the same function with
+     K1's plain version over the whole batch and to poseidon_large on the
+     first 256, with its wall time and keys/s; (b) phase 5's proofs through
+     the native C++ verifier (tampered public refused), and the codegen
+     CLI's generated verifier of phase 5's key compiled by g++: rc 0 on a
+     proof, 1 on a tampered proof byte, 2 with no arguments; (c)
+     update_dkim_registry --local-keys over three seeded RSA signers and an
+     ed25519 one: each RSA pubkeyHash equal to (a)'s and to
+     poseidon_large, the ed25519 mail verified as unprovable; (d)
+     msm_stress at 1,310,234 points, batch 4 (G1 sort, G1 bucket, G2 sort)
+     and (e) prim_bench at 2^20, their JSON lines printed; the kernels'
+     widths on this path are recorded, and those phase 2 did not check
+     (the MSMs' at batch 4) are held to the plain versions and timed.
 
 It then prints one JSON line with each kernel's numbers (launches: the sort
 route's prove in phase 4; launches_witness and launches_email: phase 5's
 witness and its prove; launches_key_load, launches_zkey_write and
 launches_zkey_read: phase 6's loaders; launches_<config>_prove: phase 7's
-proves; launches_sharded_prove: phase 8's, over all ranks and meshes), the
+proves; launches_sharded_prove: phase 8's, over all ranks and meshes;
+launches_tools: phase 9's (a), (d) and (e)), the
 card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure is an uncaught exception and a
 non-zero exit; without a CUDA device it exits 1 before printing any result.
@@ -106,6 +125,18 @@ SOFT_BODY = (b"A quoted-printable body whose long line is soft=\r\n"
 # Fermat inversion chains of is_zero (1), the Poseidon S-boxes (20) and MDS
 # products (200), the FpMul evaluation products (17 x 33 x 2)
 K1_WITNESS_WIDTHS = (1, 20, 200, 1122)
+# Phase 9: the DKIM registry's batch of keys, hashed by pubkey_hashes
+# (Poseidon at t = 10), and the K1 widths it launches at: the partial
+# rounds' S-boxes and the conversion out (B), the conversion in (9 B), the
+# full rounds' S-boxes (10 B) and the MDS products (100 B)
+REGISTRY_KEYS = 65_536
+K1_POSEIDON_WIDTHS = (REGISTRY_KEYS, 9 * REGISTRY_KEYS, 10 * REGISTRY_KEYS,
+                      100 * REGISTRY_KEYS)
+# phase 9's tools: msm_stress at full640's signal count, batch 4; prim_bench
+# at 2^20 lanes, whose K2 widths are 2^20 and its tree reduction's halvings
+STRESS_N, STRESS_BATCH = FULL640["n_signals"], 4
+PRIM_N = 1 << 20
+PRIM_K2_WIDTHS = tuple(PRIM_N >> i for i in range(21))
 SMALL = {"n_constraints": 1000, "n_signals": 960}
 BATCH = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -286,19 +317,24 @@ def main() -> int:
         record("mont_mul", err, k_ms, p_ms, n)
         log(f"  K1 mont_mul {field} {n} lanes: equal; {k_ms:.4f} ms/launch, "
             f"plain {p_ms:.3f} ms")
-    # the email witness's widths (Fr): every slice of w lanes of the first
-    # max(w, 64) of the bulk operands against the plain version
-    for w in K1_WITNESS_WIDTHS:
+    def check_k1_width(w: int) -> None:
+        """K1 (Fr) at w lanes against the plain version: every slice of w
+        lanes of max(w, 64) fresh lanes; then timed at w lanes."""
+        a_all, b_all = rand_fe("Fr", max(w, 64)), rand_fe("Fr", max(w, 64)).flip(1).contiguous()
         for lo in range(0, max(w, 64), w):
-            aw, bw = a[:, lo : lo + w].contiguous(), b[:, lo : lo + w].contiguous()
+            aw, bw = a_all[:, lo : lo + w].contiguous(), b_all[:, lo : lo + w].contiguous()
             err = max_err(FK.mont_mul_flat("Fr", aw, bw), FK.mont_mul_plain("Fr", aw, bw))
             if err:
                 raise AssertionError(f"K1 Fr at {w} lanes: kernel differs from plain")
         results["mont_mul"][f"ms_{w}"] = time_ms(
             torch, lambda: FK.mont_mul_flat("Fr", aw, bw), 200 if w <= 64 else 20)
+
+    # the email witness's widths and the registry Poseidon's (phase 9)
+    for w in K1_WITNESS_WIDTHS + K1_POSEIDON_WIDTHS:
+        check_k1_width(w)
     log("  K1 mont_mul Fr at " + ", ".join(
         f"{w} lanes: equal; {results['mont_mul'][f'ms_{w}']:.4f} ms/launch"
-        for w in K1_WITNESS_WIDTHS))
+        for w in K1_WITNESS_WIDTHS + K1_POSEIDON_WIDTHS))
 
     def curve_operands(kind: str, n: int):
         """Random points p, q = s * G, with q the identity on lanes i % 7 == 0,
@@ -369,55 +405,67 @@ def main() -> int:
             g1_widths += [level1(H_POINTS // msm, r), sig, r << (MS.C_BITS_SORT - 1), r,
                           4 * r, 4 * b]
             g2_widths += [sig, r, b]
+    g1_widths += PRIM_K2_WIDTHS  # phase 9's prim_bench
     route_widths = {
-        "mont_mul": K1_WITNESS_WIDTHS,
-        "ec_add_g1": tuple(dict.fromkeys(g1_widths)),
-        "ec_add_g2": tuple(dict.fromkeys(g2_widths)),
+        "mont_mul": list(K1_WITNESS_WIDTHS + K1_POSEIDON_WIDTHS),
+        "ec_add_g1": list(dict.fromkeys(g1_widths)),
+        "ec_add_g2": list(dict.fromkeys(g2_widths)),
     }
 
-    def check_sliced(name, kern, plain, p, q, neg, chunk: int) -> None:
-        """The kernel over all lanes against the plain version slice by slice
-        (the plain version is lane-wise; it would not fit at once)."""
-        k = kern(p, q, neg)
-        n = neg.numel()
-        for lo in range(0, n, chunk):
-            hi = min(lo + chunk, n)
-            ref = plain(lanes(p, lo, hi), lanes(q, lo, hi), neg[lo:hi].contiguous())
-            err = max(max_err(x[:, lo:hi], y) for x, y in zip(coords(k), coords(ref)))
-            if err:
-                raise AssertionError(f"{name} at {n} lanes, lanes {lo}..{hi}: kernel "
-                                     f"differs from plain (max {err})")
+    curve_kernels = {  # name: (kind, bulk lanes, kernel, plain version)
+        "ec_add_g1": ("g1", 1 << 18, FK.ec_add_g1_flat, FK.ec_add_g1_plain),
+        "ec_add_g2": ("g2", 1 << 16, FK.ec_add_g2_flat, FK.ec_add_g2_plain),
+    }
 
-    for name, kind, n, kern, plain in (
-        ("ec_add_g1", "g1", 1 << 18, FK.ec_add_g1_flat, FK.ec_add_g1_plain),
-        ("ec_add_g2", "g2", 1 << 16, FK.ec_add_g2_flat, FK.ec_add_g2_plain),
-    ):
+    def check_curve_width(name: str, w: int) -> None:
+        """K2 or K3 at w lanes against the plain version; then timed. Past
+        the bulk width n the operands are n fresh lanes tiled to w, and each
+        tile of the kernel's output is held to the plain version's on the n
+        lanes (the kernels are lane-wise; the plain version at w lanes
+        would not fit). Else every slice of w lanes of max(w, 64) fresh
+        lanes is checked: all edge lanes at the narrow widths."""
+        kind, n, kern, plain = curve_kernels[name]
+        if w > n:
+            p, q, neg = curve_operands(kind, n)
+            ref = coords(plain(p, q, neg))
+            tiles = -(-w // n)
+            ps, qs = (map_coords(pt, lambda c: c.repeat(1, tiles)[:, :w].contiguous())
+                      for pt in (p, q))
+            ns = neg.repeat(tiles)[:w].contiguous()
+            out = coords(kern(ps, qs, ns))
+            for lo in range(0, w, n):
+                hi = min(lo + n, w)
+                err = max(max_err(x[:, lo:hi], y[:, : hi - lo]) for x, y in zip(out, ref))
+                if err:
+                    raise AssertionError(f"{name} at {w} lanes, lanes {lo}..{hi}: kernel "
+                                         f"differs from plain (max {err})")
+            del p, q, neg, ref, out
+            reps = 5
+        else:
+            ps, qs, ns = curve_operands(kind, max(w, 64))
+            for lo in range(0, max(w, 64), w):
+                check(name, kern, plain, lanes(ps, lo, lo + w), lanes(qs, lo, lo + w),
+                      ns[lo : lo + w].contiguous())
+            ps, qs, ns = lanes(ps, 0, w), lanes(qs, 0, w), ns[:w].contiguous()
+            reps = 200 if w <= 64 else 20
+        results[name][f"ms_{w}"] = time_ms(torch, lambda: kern(ps, qs, ns), reps)
+        del ps, qs, ns
+        torch.cuda.empty_cache()
+
+    for name, (kind, n, kern, plain) in curve_kernels.items():
         p, q, neg = curve_operands(kind, n)
         err = check(name, kern, plain, p, q, neg)
         k_ms = time_ms(torch, lambda: kern(p, q, neg), 20)
         p_ms = time_ms(torch, lambda: plain(p, q, neg), 2)
         record(name, err, k_ms, p_ms, n, int(neg.sum()))
         log(f"  K {name} {n} lanes: equal; {k_ms:.4f} ms/launch, plain {p_ms:.3f} ms")
+        del p, q, neg
         for w in route_widths[name]:
-            if w > n:
-                ps, qs, ns = curve_operands(kind, w)
-                check_sliced(name, kern, plain, ps, qs, ns, n)
-                reps = 5
-            else:
-                # every slice of w lanes of the first max(w, 64): all edge
-                # lanes at the narrow widths
-                for lo in range(0, max(w, 64), w):
-                    check(name, kern, plain, lanes(p, lo, lo + w), lanes(q, lo, lo + w),
-                          neg[lo : lo + w].contiguous())
-                ps, qs, ns = lanes(p, 0, w), lanes(q, 0, w), neg[:w].contiguous()
-                reps = 200 if w <= 64 else 20
-            results[name][f"ms_{w}"] = time_ms(torch, lambda: kern(ps, qs, ns), reps)
-            del ps, qs, ns
-            torch.cuda.empty_cache()
+            check_curve_width(name, w)
         log(f"  K {name} at " + ", ".join(
             f"{w} lanes: equal; {results[name][f'ms_{w}']:.4f} ms/launch"
             for w in route_widths[name]))
-    del p, q, neg, k, ref, a, b
+    del k, ref, a, b
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f} s")
 
@@ -933,7 +981,200 @@ def main() -> int:
     log(f"phase 8 multi-GPU prove ({n_cards} card{'s' if n_cards > 1 else ''}): launches "
         f"over all ranks and meshes {json.dumps(sharded_launches)}; {time.time() - t0:.1f} s")
 
-    # -- 9. results ------------------------------------------------------------
+    # -- 9. tools and registry -------------------------------------------------------
+    t0 = time.time()
+    seen_widths = {name: {} for name in FK.LAUNCHES}  # kernel: {lanes: launches}
+    flat_fns = {"mont_mul": FK.mont_mul_flat, "ec_add_g1": FK.ec_add_g1_flat,
+                "ec_add_g2": FK.ec_add_g2_flat}
+
+    def recording_widths():
+        """Each wrapper records its launches' widths while the tools run."""
+        def wrap(name, fn):
+            def recorded(*args):
+                n = args[-1].numel() if name != "mont_mul" else args[1].shape[1]
+                seen_widths[name][n] = seen_widths[name].get(n, 0) + 1
+                return fn(*args)
+            return recorded
+        for name, fn in flat_fns.items():
+            setattr(FK, name + "_flat", wrap(name, fn))
+
+    def restore_kernels():
+        for name, fn in flat_fns.items():
+            setattr(FK, name + "_flat", fn)
+
+    tool_labels = []
+
+    def tool(label, fn):
+        """fn() with its kernel launches counted (phase 9's path) and its
+        widths recorded; returns (fn's result, seconds)."""
+        recording_widths()
+        try:
+            out, secs = counted(label, fn)
+        finally:
+            restore_kernels()
+        tool_labels.append(label)
+        return out, secs
+
+    # (a) the registry's batch: REGISTRY_KEYS odd 2048-bit moduli, three of
+    # them (c)'s signers' keys, hashed on the card by pubkey_hashes
+    from zkemail_tpu_torch.core.poseidon_torch import pubkey_hashes
+    from zkemail_tpu_torch.helpers.dns import StaticResolver, parse_dkim_txt
+    from zkemail_tpu_torch.helpers.testkit import LocalEd25519DKIMSigner
+
+    rsa_signers = [LocalDKIMSigner(domain=d, selector=sel, seed=30 + i) for i, (d, sel) in
+                   enumerate([("corp.example", "selector1"), ("corp.example", "google"),
+                              ("mail.example", "s1")])]
+    ed_signer = LocalEd25519DKIMSigner(domain="mail.example", selector="ed1", seed=34)
+    rng = random.Random(2028)
+    moduli = [s.public_key[0] for s in rsa_signers] + [
+        rng.getrandbits(2048) | (1 << 2047) | 1 for _ in range(REGISTRY_KEYS - 3)]
+    torch.cuda.reset_peak_memory_stats()
+    _, t_cold = tool("registry_hash_cold", lambda: pubkey_hashes(moduli, device=dev))
+    hashes, t_hash = tool("registry_hash", lambda: pubkey_hashes(moduli, device=dev))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if path_launches["registry_hash"]["mont_mul"] != 274:
+        raise AssertionError(f"pubkey_hashes: {path_launches['registry_hash']} K1 launches, "
+                             "expected 272 + 2")
+    FK.mont_mul_flat = lambda field, x, y: FK.mont_mul_plain(field, x, y)
+    try:
+        t = time.time()
+        plain_hashes = pubkey_hashes(moduli, device=dev)
+        torch.cuda.synchronize()
+        t_plain = time.time() - t
+    finally:
+        restore_kernels()
+    if not torch.equal(hashes, plain_hashes):
+        raise AssertionError("pubkey_hashes with K1 differs from its plain version")
+    hash_ints = [int(v) for v in LB.limbs_to_ints(hashes)]
+    t = time.time()
+    if hash_ints[:256] != [poseidon_large(m, 121, 9) for m in moduli[:256]]:
+        raise AssertionError("pubkey_hashes differs from poseidon_large")
+    t_ref = time.time() - t
+    log(f"phase 9 tools and registry: (a) pubkey_hashes of {REGISTRY_KEYS} keys on the card: "
+        f"cold {t_cold:.3f} s, warm {t_hash:.3f} s ({REGISTRY_KEYS / t_hash:.0f} keys/s), "
+        f"launches {json.dumps(path_launches['registry_hash'])}, peak {peak_gb:.2f} GB; "
+        f"equal to K1's plain version on the card ({t_plain:.2f} s) over the batch and "
+        f"to poseidon_large on the first 256 ({t_ref:.2f} s)")
+    del plain_hashes
+
+    # (b) the native verifier and the generated C++ verifier on phase 5's proofs
+    import contextlib
+    import io
+
+    from zkemail_tpu_torch.native import codegen
+    from zkemail_tpu_torch.native import verifier as native
+    from zkemail_tpu_torch.prover.containers import Proof, publics_to_snarkjs
+
+    t = time.time()
+    native.build()
+    t_build = time.time() - t
+    for a_pt, b_pt, c_pt, pub in email_proofs:
+        proof = Proof(a_pt, b_pt, c_pt)
+        if not native.verify(full640_vk, proof, list(pub)):
+            raise AssertionError("native verifier: a phase 5 proof does not verify")
+        if native.verify(full640_vk, proof, [(pub[0] + 1) % F.R] + list(pub[1:])):
+            raise AssertionError("native verifier: a tampered public verifies")
+    a_pt, b_pt, c_pt, pub = email_proofs[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codegen_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "vkey.json").write_text(json.dumps(full640_vk.to_snarkjs()))
+        (tmp / "proof.json").write_text(json.dumps(Proof(a_pt, b_pt, c_pt).to_snarkjs()))
+        (tmp / "public.json").write_text(json.dumps(publics_to_snarkjs(list(pub))))
+        with contextlib.redirect_stdout(io.StringIO()):
+            codegen.main(["generate-verifier", "-v", str(tmp / "vkey.json"),
+                          "-o", str(tmp / "verifier.cpp")])
+            codegen.main(["generate-verifier-arguments", "-p", str(tmp / "proof.json"),
+                          "-i", str(tmp / "public.json"), "--out-dir", str(tmp / "args")])
+        exe = tmp / "verifier"
+        subprocess.run(["g++", "-O2", "-std=c++17", str(tmp / "verifier.cpp"), "-o", str(exe)],
+                       check=True, capture_output=True)
+        flat = [str(tmp / "args" / "proof.flat.bin"), str(tmp / "args" / "publics.flat.bin")]
+        bad = bytearray((tmp / "args" / "proof.flat.bin").read_bytes())
+        bad[5] ^= 1
+        (tmp / "bad.bin").write_bytes(bytes(bad))
+        rcs = [subprocess.run([str(exe), *argv], capture_output=True).returncode
+               for argv in (flat, [str(tmp / "bad.bin"), flat[1]], [])]
+    if rcs != [0, 1, 2]:
+        raise AssertionError(f"generated verifier: exit codes {rcs}, expected [0, 1, 2]")
+    log(f"  (b) native verifier (g++ build {t_build:.1f} s): phase 5's proofs verify, a "
+        f"tampered public fails; codegen's C++ verifier of phase 5's key: rc 0 on its proof, "
+        f"1 on a tampered proof byte, 2 with no arguments; {time.time() - t:.1f} s")
+
+    # (c) the registry path offline: update_dkim_registry --local-keys
+    from zkemail_tpu_torch.scripts import update_dkim_registry
+
+    t = time.time()
+    local = {}
+    for sgn in rsa_signers + [ed_signer]:
+        local.setdefault(sgn.domain, {})[sgn.selector] = sgn.dns_txt_record()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "keys.json").write_text(json.dumps(local))
+        with contextlib.redirect_stdout(io.StringIO()):
+            update_dkim_registry.main(["--local-keys", str(tmp / "keys.json"), "--domains",
+                                       "corp.example", "mail.example",
+                                       "--output", str(tmp / "registry.json")])
+        registry = json.loads((tmp / "registry.json").read_text())
+    crawled = {(dom, e["selector"]): int(e["pubkeyHash"])
+               for dom, entries in registry["keys"].items() for e in entries}
+    want = {(sgn.domain, sgn.selector): hash_ints[i] for i, sgn in enumerate(rsa_signers)}
+    if crawled != want or any(h != poseidon_large(sgn.public_key[0], 121, 9)
+                              for h, sgn in zip(want.values(), rsa_signers)):
+        raise AssertionError(f"registry: crawled hashes {crawled} differ from (a)'s "
+                             "pubkey_hashes or poseidon_large")
+    ed_resolver = StaticResolver({(ed_signer.domain, ed_signer.selector): [
+        parse_dkim_txt(local[ed_signer.domain][ed_signer.selector])]})
+    ed_res = verify_dkim_signature(ed_signer.sign_email(subject="ed25519 registry key"),
+                                   ed_resolver)
+    if ed_res.algo != "ed25519-sha256" or ed_res.circuit_provable:
+        raise AssertionError("the ed25519 signer's email: not a verified, unprovable result")
+    log(f"  (c) update_dkim_registry --local-keys: {len(crawled)} RSA keys crawled (the "
+        f"ed25519 key skipped), each pubkeyHash equal to (a)'s and to poseidon_large, "
+        f"{len(registry['calls'])} calldata entries; the ed25519 signer's email verifies "
+        f"with circuit_provable=False; {time.time() - t:.1f} s")
+
+    # (d) msm_stress at full640's signal count, batch 4; (e) prim_bench at 2^20
+    from zkemail_tpu_torch.scripts import msm_stress, prim_bench
+
+    tool_lines = {}
+    for label, kind, algo in (("stress_g1_sort", "g1", "sort"),
+                              ("stress_g1_bucket", "g1", "bucket"),
+                              ("stress_g2_sort", "g2", "sort")):
+        with contextlib.redirect_stdout(io.StringIO()):
+            tool_lines[label], _ = tool(label, lambda: msm_stress.main([
+                "--n", str(STRESS_N), "--batch", str(STRESS_BATCH), "--kind", kind,
+                "--algo", algo, "--reps", "2"]))
+        log(f"  (d) msm_stress {kind} {algo}: {json.dumps(tool_lines[label])}")
+        torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tool_lines["prim"], _ = tool("prim_bench", lambda: prim_bench.main(["--n", str(PRIM_N)]))
+    log(f"  (e) prim_bench: {json.dumps(tool_lines['prim'])}")
+
+    # the widths the tools launched each kernel at that phase 2 did not
+    # check (the MSM routes' at batch 4): each against its plain version
+    tools_launches = {k: sum(path_launches[lb][k] for lb in tool_labels) for k in FK.LAUNCHES}
+    bulk = {"mont_mul": 1 << 20, "ec_add_g1": 1 << 18, "ec_add_g2": 1 << 16}
+    t = time.time()
+    new_widths = {}
+    for name, widths in seen_widths.items():
+        new = sorted(w for w in widths if w not in route_widths[name] and w != bulk[name])
+        for w in new:
+            if name == "mont_mul":
+                check_k1_width(w)
+            else:
+                check_curve_width(name, w)
+        route_widths[name] += new
+        new_widths[name] = new
+    missing = [k for k, v in tools_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by phase 9's tools: {missing}")
+    log(f"  launches on phase 9's path {json.dumps(tools_launches)}; widths (lanes: launches) "
+        f"{json.dumps({k: dict(sorted(v.items())) for k, v in seen_widths.items()})}; "
+        f"the {sum(map(len, new_widths.values()))} widths phase 2 had not checked equal the "
+        f"plain versions ({time.time() - t:.1f} s)")
+    log(f"phase 9: {time.time() - t0:.1f} s")
+
+    # -- 10. results -----------------------------------------------------------
     line = {"kernels": [
         {
             "name": name,
@@ -955,6 +1196,7 @@ def main() -> int:
             **{f"launches_{label}_prove": path_launches[f"{label}_prove"][name]
                for label in ("full640reveal", "sha640", "rsa2048")},
             "launches_sharded_prove": sharded_launches[name],
+            "launches_tools": tools_launches[name],
             **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},
         }
         for name, r in results.items()

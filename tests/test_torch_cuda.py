@@ -188,3 +188,43 @@ def test_second_card_proves_as_the_first(dev):
     # an unindexed "cuda" names the current card, the key's device here
     pk = groth16_setup(circ.r1cs, seed=3, device="cuda:0")
     assert prove_batch(pk, circ.r1cs, w, rng=random.Random(4))[0][0].a == got["cuda:0"][0][0]
+
+
+def test_pubkey_hashes_on_card_equal_plain_and_reference(dev, monkeypatch):
+    """The registry's batched Poseidon at B = 4,096 on the card: 274 K1
+    launches (272 rounds' products and two conversions), equal to the same
+    function with K1's plain version on the card, and to poseidon_large."""
+    import random
+
+    from zkemail_tpu_torch.core import limbs as LB
+    from zkemail_tpu_torch.core.poseidon import poseidon_large
+    from zkemail_tpu_torch.core.poseidon_torch import pubkey_hashes
+
+    rng = random.Random(9)
+    moduli = [rng.getrandbits(2048) | (1 << 2047) | 1 for _ in range(4096)]
+    before = FK.LAUNCHES["mont_mul"]
+    card = pubkey_hashes(moduli, device=dev)
+    assert FK.LAUNCHES["mont_mul"] - before == 274
+    monkeypatch.setattr(FK, "mont_mul_flat", lambda field, a, b: FK.mont_mul_plain(field, a, b))
+    plain = pubkey_hashes(moduli, device=dev)
+    assert torch.equal(card, plain)
+    got = [int(v) for v in LB.limbs_to_ints(card[:, :16])]
+    assert got == [poseidon_large(m, 121, 9) for m in moduli[:16]]
+
+
+def test_tool_scripts_run_on_card(capsys):
+    """msm_stress (both algorithms) and prim_bench run on the card by
+    default and print their JSON lines."""
+    import json
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from zkemail_tpu_torch.scripts import msm_stress, prim_bench
+
+    for algo in ("sort", "bucket"):
+        line = msm_stress.main(["--n", "4096", "--batch", "2", "--algo", algo, "--reps", "1"])
+        assert line["metric"] == "msm_stress_s" and line["value"] > 0
+    out = prim_bench.main(["--n", "65536", "--reps", "2"])
+    assert len(out) == 14 and all(v["s"] > 0 for v in out.values())
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == out

@@ -131,9 +131,18 @@ def test_signer_is_deterministic_from_its_seed(port_signer):
 
 
 def test_ed25519_signature_raises_not_implemented(port_signer):
+    """An a=ed25519-sha256 tag over an RSA key. The port once raised
+    NotImplementedError here; it now verifies ed25519 as the JAX package
+    does, where an RSA key cannot check an ed25519 signature: EBADSIG in
+    both (tests/test_torch_dkim_ed25519.py covers real ed25519 mail)."""
+    from zkemail_tpu.helpers.dkim import DKIMError as JDKIMError
+
     eml = port_signer.sign_email().replace(b"a=rsa-sha256", b"a=ed25519-sha256")
-    with pytest.raises(NotImplementedError, match="ed25519"):
+    with pytest.raises(JDKIMError) as jerr:
+        j_verify(eml, port_signer.resolver())
+    with pytest.raises(DKIMError) as terr:
         t_verify(eml, port_signer.resolver())
+    assert terr.value.code == jerr.value.code == "EBADSIG"
 
 
 # ---------------------------------------------------------------------------

@@ -214,6 +214,24 @@ def ec_add(ops, p, q):
     return _fused_add(ops, p, q, None)
 
 
+def ec_double(ops, p):
+    """2P as the complete addition P + P (one K2/K3 launch): the addition
+    law is complete, so it doubles too. The JAX package's dedicated
+    doubling (RCB Algorithm 9) may give another projective representative
+    of the same point."""
+    return _fused_add(ops, p, p, None)
+
+
+def ec_scalar_mul_bits(ops, p, scalar_bits: torch.Tensor):
+    """Batched double-and-add: scalar_bits (nbits, ...) int32, MSB first,
+    each row shaped like p's batch. Two K2/K3 launches per bit."""
+    acc = ec_identity(ops, ops.batch_shape(p["x"]), ops.device(p["x"]))
+    for bit in scalar_bits:
+        acc = ec_double(ops, acc)
+        acc = ec_select(ops, bit != 0, ec_add(ops, acc, p), acc)
+    return acc
+
+
 def ec_to_affine(ops, p):
     """Normalize projective -> affine (identity maps to (0, 0))."""
     zinv = ops.inv(p["z"])

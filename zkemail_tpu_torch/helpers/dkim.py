@@ -1,11 +1,12 @@
-"""DKIM (RFC 6376) verification on the host, rsa-sha256 only.
+"""DKIM (RFC 6376) verification on the host.
 
 The port of ``zkemail_tpu/helpers/dkim.py``: parse -> canonicalize ->
-body-hash check -> signature base reconstruction -> RSA-SHA256 verify with
-multi-key trial, returning the byte buffers that feed the circuit inputs,
-with the JAX package's sanitizer retries and Authentication-Results row.
-RSA verification is pure integer arithmetic. Not ported: ed25519-sha256
-signatures (``NotImplementedError``; the circuit proves RSA only).
+body-hash check -> signature base reconstruction -> RSA-SHA256 or RFC 8463
+ed25519-sha256 verify with multi-key trial, returning the byte buffers that
+feed the circuit inputs, with the JAX package's sanitizer retries and
+Authentication-Results row. Both verifications are Python integer
+arithmetic (``helpers/ed25519.py`` for ed25519). The circuit proves RSA
+only, so ed25519 results carry ``circuit_provable=False``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import base64
 import re
 from dataclasses import dataclass, field
 
+from . import ed25519
 from .canon import (
     canon_body,
     canon_header_relaxed,
@@ -158,7 +160,7 @@ def parse_tags(value: bytes) -> dict[str, str]:
 @dataclass
 class DKIMVerificationResult:
     signature: int
-    public_key: tuple  # (n, e)
+    public_key: tuple  # (n, e) for RSA; ("ed25519", raw_32_bytes) otherwise
     headers: bytes  # canonicalized signed-header buffer (circuit input)
     body: bytes  # canonicalized body (circuit input)
     body_hash: str  # base64 bh= tag
@@ -170,9 +172,8 @@ class DKIMVerificationResult:
     applied_sanitization: str | None = None
     status: dict = field(default_factory=dict)
     auth_results: str | None = None  # Authentication-Results row (tools.ts:416)
-    # only rsa-sha256 signatures verify in the port, and each can feed the
-    # RSA-65537 circuit: always True (the JAX package's ed25519 results
-    # carry False)
+    # rsa-sha256 and ed25519-sha256 both verify on the host; only rsa-sha256
+    # signatures can feed the RSA-65537 circuit
     circuit_provable: bool = True
 
 
@@ -230,6 +231,12 @@ def build_signature_base(
     else:
         chunks.append(canon_header_simple(stripped))
     return b"\r\n".join(chunks)
+
+
+def ed25519_sha256_verify(pub_raw: bytes, sig: bytes, message: bytes) -> bool:
+    """RFC 8463 ed25519-sha256: PureEdDSA over the SHA-256 digest of the
+    canonicalized signature base."""
+    return ed25519.verify(pub_raw, sha256(message), sig)
 
 
 def rsa_sha256_verify(n: int, e: int, signature: int, message: bytes) -> bool:
@@ -341,11 +348,6 @@ def _verify_one(
     # case-sensitive, as the JAX package: a= is a lower-case token
     if algo not in ("rsa-sha256", "ed25519-sha256"):
         raise DKIMError("EINVALIDALGO", f"unsupported algorithm {algo}")
-    if algo == "ed25519-sha256":
-        raise NotImplementedError(
-            "ed25519-sha256 DKIM signatures are not ported; the circuit proves "
-            "rsa-sha256 only"
-        )
     canon = tags.get("c", "simple/simple")
     parts = canon.split("/")
     header_canon = parts[0] or "simple"
@@ -367,24 +369,40 @@ def _verify_one(
     if not keys:
         raise DKIMError("ENODATA", f"no DKIM key found for {s}._domainkey.{d}")
 
+    def result(public_key, modulus_length, provable):
+        return DKIMVerificationResult(
+            signature=signature,
+            public_key=public_key,
+            headers=base,
+            body=body_canonical,
+            body_hash=bh_expected,
+            signing_domain=d,
+            selector=s,
+            algo=algo,
+            format=canon,
+            modulus_length=modulus_length,
+            status={"result": "pass", "aligned": d},
+            circuit_provable=provable,
+        )
+
+    if algo == "ed25519-sha256":
+        sig_bytes = base64.b64decode(sig_b64 + "=" * (-len(sig_b64) % 4))
+        for key in keys:
+            if key[0] != "ed25519":
+                continue  # key-type/algorithm mismatch: try the next key
+            if ed25519_sha256_verify(key[1], sig_bytes, base):
+                # valid mail, but the RSA-65537 circuit cannot prove it
+                return result(key, 256, provable=False)
+        raise DKIMError("EBADSIG", "bad signature")
+
     for key in keys:
+        if isinstance(key[0], str):
+            continue  # an ed25519 key cannot check an rsa-sha256 signature
         n, e = key
         if n.bit_length() < 1024:
             raise DKIMError("ESHORTKEY", "key too short")
         if rsa_sha256_verify(n, e, signature, base):
-            return DKIMVerificationResult(
-                signature=signature,
-                public_key=(n, e),
-                headers=base,
-                body=body_canonical,
-                body_hash=bh_expected,
-                signing_domain=d,
-                selector=s,
-                algo=algo,
-                format=canon,
-                modulus_length=n.bit_length(),
-                status={"result": "pass", "aligned": d},
-            )
+            return result((n, e), n.bit_length(), provable=True)
     raise DKIMError("EBADSIG", "bad signature")
 
 

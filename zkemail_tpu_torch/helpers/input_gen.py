@@ -69,6 +69,11 @@ def generate_email_verifier_inputs_from_dkim(
     dkim: DKIMVerificationResult, params: InputGenArgs | None = None
 ) -> dict:
     params = params or InputGenArgs()
+    if not dkim.circuit_provable:
+        raise ValueError(
+            f"DKIM signature verified ({dkim.algo}) but the RSA-65537 "
+            "circuit cannot prove it; only rsa-sha256 mail is provable"
+        )
     headers, body = dkim.headers, dkim.body
 
     header_padded, header_padded_len = sha256_pad(headers, params.max_headers_length)

@@ -1,11 +1,12 @@
 """Self-contained DKIM-signed test emails, from a seed.
 
-The port of ``zkemail_tpu/helpers/testkit.py``'s ``LocalDKIMSigner``
-without the ``cryptography`` package: the RSA key is generated from a
-seeded ``random.Random`` (Miller-Rabin in Python ints, e = 65537) and the
-signature is EMSA-PKCS1-v1_5 over SHA-256 by ``pow``. The emails it writes
-are byte for byte the JAX signer's layout, so the same key signs the same
-bytes. The ed25519 signer is not ported.
+The port of ``zkemail_tpu/helpers/testkit.py`` without the ``cryptography``
+package. ``LocalDKIMSigner``'s RSA key is generated from a seeded
+``random.Random`` (Miller-Rabin in Python ints, e = 65537) and the
+signature is EMSA-PKCS1-v1_5 over SHA-256 by ``pow``;
+``LocalEd25519DKIMSigner``'s secret is 32 seeded bytes and its signature
+RFC 8032's (``helpers/ed25519.py``). The emails they write are byte for
+byte the JAX signers' layout, so the same key signs the same bytes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import base64
 import random
 from dataclasses import dataclass
 
+from . import ed25519
 from .canon import canon_body
 from .dkim import build_signature_base, parse_message, parse_tags
 from .dns import RSA_ENCRYPTION_OID, StaticResolver
@@ -151,16 +153,65 @@ class LocalDKIMSigner:
             + b"DKIM-Signature:" + dkim_value.encode() + b"\r\n"
             + b"\r\n" + body
         )
-        parsed = parse_message(raw_no_sig)
-        sig_header_raw = next(
-            raw for (n, raw, v) in parsed.headers if n == "dkim-signature"
+        return _signed_email(
+            header_lines, dkim_value, body,
+            lambda base: pkcs1v15_sha256_sign(self.public_key[0], self._d, base))
+
+
+def _signed_email(header_lines: list, dkim_value: str, body: bytes, sign) -> bytes:
+    """The email with its DKIM-Signature's b= set to sign(signature base)."""
+    head = b"".join(k + b": " + v + b"\r\n" for k, v in header_lines)
+    raw_no_sig = head + b"DKIM-Signature:" + dkim_value.encode() + b"\r\n\r\n" + body
+    parsed = parse_message(raw_no_sig)
+    sig_header_raw = next(raw for (n, raw, v) in parsed.headers if n == "dkim-signature")
+    tags = parse_tags(sig_header_raw.split(b":", 1)[1])
+    b64sig = base64.b64encode(sign(build_signature_base(parsed, sig_header_raw, tags)))
+    return head + b"DKIM-Signature:" + dkim_value.encode() + b64sig + b"\r\n\r\n" + body
+
+
+@dataclass
+class LocalEd25519DKIMSigner:
+    """RFC 8463 ed25519-sha256 signer: host verification passes its mail,
+    which the circuit cannot prove (results carry circuit_provable=False).
+    The secret key is 32 bytes of random.Random(seed)."""
+
+    domain: str = "tpu.example.com"
+    selector: str = "tpu2026ed"
+    seed: int = 0
+
+    def __post_init__(self):
+        self._secret = random.Random(self.seed).randbytes(32)
+        self.public_key = ("ed25519", ed25519.public_key(self._secret))
+
+    def resolver(self) -> StaticResolver:
+        return StaticResolver({(self.domain, self.selector): [self.public_key]})
+
+    def dns_txt_record(self) -> str:
+        return "v=DKIM1; k=ed25519; p=" + base64.b64encode(self.public_key[1]).decode()
+
+    def sign_email(
+        self,
+        frm: str | None = None,
+        to: str = "alice@example.org",
+        subject: str = "Hello from the TPU prover",
+        body: bytes = b"This is a test body.\r\nIt proves DKIM on TPUs.\r\n",
+        canon: str = "relaxed/relaxed",
+        signed_headers: str = "from:to:subject:date:message-id",
+    ) -> bytes:
+        frm = frm or f"bob@{self.domain}"
+        header_lines = [
+            (b"From", frm.encode()),
+            (b"To", to.encode()),
+            (b"Subject", subject.encode()),
+            (b"Date", b"Sun, 17 Aug 2026 12:00:00 +0000"),
+            (b"Message-ID", b"<test-ed-12345@" + self.domain.encode() + b">"),
+        ]
+        body_canon_algo = canon.split("/")[1]
+        bh = base64.b64encode(sha256(canon_body(body, body_canon_algo))).decode()
+        dkim_value = (
+            f" v=1; a=ed25519-sha256; c={canon}; d={self.domain};"
+            f" s={self.selector}; h={signed_headers}; bh={bh}; b="
         )
-        tags = parse_tags(sig_header_raw.split(b":", 1)[1])
-        base = build_signature_base(parsed, sig_header_raw, tags)
-        signature = pkcs1v15_sha256_sign(self.public_key[0], self._d, base)
-        b64sig = base64.b64encode(signature).decode()
-        return (
-            b"".join(k + b": " + v + b"\r\n" for k, v in header_lines)
-            + b"DKIM-Signature:" + dkim_value.encode() + b64sig.encode() + b"\r\n"
-            + b"\r\n" + body
-        )
+        # RFC 8463: PureEdDSA over the SHA-256 digest of the signature base
+        return _signed_email(header_lines, dkim_value, body,
+                             lambda base: ed25519.sign(self._secret, sha256(base)))

@@ -32,7 +32,6 @@ from ..core import limbs as LB
 L = F.LIMBS
 C_BITS = 8
 N_WINDOWS = 32
-N_BUCKETS = 1 << (C_BITS - 1)  # 128 (signed digits, |d| in 1..128)
 
 # Thread counts on the card: one bucket-accumulation step then spans
 # B * 32 * T lanes, 2^18 for G1 and 2^16 for G2 at B = 2, enough to fill the
@@ -115,11 +114,13 @@ def msm(ops, points: dict, scalars: torch.Tensor):
     return map_coords(out, lambda c: c[:, 0])
 
 
-def msm_multi(ops, points: dict, scalars: torch.Tensor):
+def msm_multi(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS,
+              threads: int = 0):
     """Batched MSM with shared bases: scalars (L, B, n) -> point batch (B,).
 
     The batch rides the window axis: one bucket accumulation serves all B
-    scalar vectors over the same points, with (B * W, T) lanes per step."""
+    scalar vectors over the same points, with (B * W, T) lanes per step.
+    c_bits: the signed window width; threads: T (0: default_threads)."""
     if scalars.dim() != 3 or scalars.shape[0] != L:
         raise ValueError(
             f"msm_multi expects scalars shaped (L={L}, B, n); got {tuple(scalars.shape)}"
@@ -131,15 +132,15 @@ def msm_multi(ops, points: dict, scalars: torch.Tensor):
             f"msm_multi: scalars last axis ({n}) must equal point count "
             f"({n_points}); batch axis goes second"
         )
-    n_windows = -(-254 // C_BITS)
-    t_threads = default_threads(ops, n, scalars.device)
-    mag, neg = extract_signed_digits(scalars.reshape(L, bsz * n), C_BITS, n_windows)
+    n_windows = -(-254 // c_bits)
+    t_threads = threads or default_threads(ops, n, scalars.device)
+    mag, neg = extract_signed_digits(scalars.reshape(L, bsz * n), c_bits, n_windows)
     # (W, B*n) -> (B*W, n): each batch element owns a contiguous window block
     mag = mag.reshape(n_windows, bsz, n).transpose(0, 1).reshape(bsz * n_windows, n)
     neg = neg.reshape(n_windows, bsz, n).transpose(0, 1).reshape(bsz * n_windows, n)
-    total = _window_sums(ops, points, mag, neg, t_threads, N_BUCKETS)
+    total = _window_sums(ops, points, mag, neg, t_threads, 1 << (c_bits - 1))
     total = map_coords(total, lambda c: c.reshape(L, bsz, n_windows))
-    return _horner_combine(ops, total, n_windows, C_BITS)
+    return _horner_combine(ops, total, n_windows, c_bits)
 
 
 def _window_sums(ops, points, mag, neg, t_threads: int, n_buckets: int):

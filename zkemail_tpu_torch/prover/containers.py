@@ -1,8 +1,8 @@
 """Groth16 proof/key containers + the verification equation (oracle path).
 
 A self-contained checker in place of snarkjs' `groth16.verify`, used as the
-oracle for the prover. A copy of the JAX package's module without its
-arkworks byte decoder, so that the port imports nothing of it.
+oracle for the prover. A copy of the JAX package's module, so that the port
+imports nothing of it.
 """
 
 from __future__ import annotations
@@ -56,6 +56,13 @@ class VerifyingKey:
     gamma_g2: G2
     delta_g2: G2
     ic: list = field(default_factory=list)
+
+    @staticmethod
+    def from_ark_bytes(data: bytes) -> "VerifyingKey":
+        """Decode an arkworks compressed VerifyingKey<Bn254>."""
+        from ..utils.ark_serialize import decode_vkey
+
+        return VerifyingKey(**decode_vkey(data))
 
     @staticmethod
     def from_snarkjs(obj: dict) -> "VerifyingKey":
