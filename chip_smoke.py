@@ -20,10 +20,11 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      path on this machine's meshes (per rank the level-1 scans of the
      dense h, a, b1 and b2 MSMs over its shard, threshold terms, final
      scans, the reduction of the gathered window sums and the Horner
-     steps) and at prim_bench's (2^20 lanes and its tree reduction's
-     halvings), the widths past the bulk one as the bulk lanes tiled, each
-     tile held to the plain version's; times per launch beside the plain
-     version's;
+     steps), at prim_bench's (2^20 lanes and its tree reduction's
+     halvings) and at phase 10's largest (the h MSM's level-1 scans at
+     2^22 and B = 8, the b2 dense fallback's of full1024 and full4kb), the
+     widths past the bulk one as the bulk lanes tiled, each tile held to
+     the plain version's; times per launch beside the plain version's;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
      two prove_batch calls at B = 2 on one key with witnesses from two
      seeds (each signal MSM's outcome under the signal plan: hit, or miss),
@@ -89,14 +90,30 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      msm_stress at 1,310,234 points, batch 4 (G1 sort, G1 bucket, G2 sort)
      and (e) prim_bench at 2^20, their JSON lines printed; the kernels'
      widths on this path are recorded, and those phase 2 did not check
-     (the MSMs' at batch 4) are held to the plain versions and timed.
+     (the MSMs' at batch 4) are held to the plain versions and timed;
+ 10. bench.py's largest circuits, full1024 (header 1024, body 1536) and
+     full4kb (header 1024, body 4096), both on a 2^22 domain, at bench.py's
+     batch of 8: each built and compiled, its 8 bench emails (bench_emails)
+     and one seeded email whose body fills most of the body length
+     (long_body_email) through DKIM and prepare_inputs, the witness of the
+     8 on the card (cold and warm; K1 launches, host syncs, peak memory)
+     satisfying the R1CS with the host's publics, the long-body email's
+     witness at B = 1 too (at full4kb also equal to the CPU's limb for
+     limb), setup by groth16_setup and groth16_setup_cached (a miss and a
+     hit in a directory of the run's own, both equal to the setup), and
+     prove_batch with its stage timers and peak memory: all 8 proofs
+     verify under the native verifier with the host's publics, the first
+     under the pairing oracle too, and a tampered public is refused by
+     both. Each config's key, circuit and witness are freed before the
+     next; the widths this path launched each kernel at that no earlier
+     check reached are held to the plain versions and timed.
 
 It then prints one JSON line with each kernel's numbers (launches: the sort
 route's prove in phase 4; launches_witness and launches_email: phase 5's
 witness and its prove; launches_key_load, launches_zkey_write and
-launches_zkey_read: phase 6's loaders; launches_<config>_prove: phase 7's
-proves; launches_sharded_prove: phase 8's, over all ranks and meshes;
-launches_tools: phase 9's (a), (d) and (e)), the
+launches_zkey_read: phase 6's loaders; launches_<config>_prove: the proves
+of phase 7 and of phase 10; launches_sharded_prove: phase 8's, over all
+ranks and meshes; launches_tools: phase 9's (a), (d) and (e)), the
 card's name and power limit, and last
 {"ok": true, "device": {...}}. Any failure is an uncaught exception and a
 non-zero exit; without a CUDA device it exits 1 before printing any result.
@@ -139,6 +156,15 @@ PRIM_N = 1 << 20
 PRIM_K2_WIDTHS = tuple(PRIM_N >> i for i in range(21))
 SMALL = {"n_constraints": 1000, "n_signals": 960}
 BATCH = 2
+# Phase 10: bench.py's two largest configs (bench.py:43-55), both on a 2^22
+# domain, at bench.py's default batch (BENCH_BATCH, bench.py:303)
+BIG_CONFIGS = {
+    "full1024": {"n_constraints": 2_190_813, "n_signals": 2_122_382},
+    "full4kb": {"n_constraints": 3_392_429, "n_signals": 3_300_638},
+}
+BIG_BATCH = 8
+BIG_H_POINTS = 1 << 22
+K1_PLAIN_LANES = 1 << 23  # K1 past this width is held to the plain version by tiles
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 INT32_PER_CLK_PER_SM = 64  # 32-bit integer add/mul/logic results, sm_90
 
@@ -250,6 +276,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
+    t_start = time.time()
 
     # -- 1. card and build ---------------------------------------------------
     t0 = time.time()
@@ -319,15 +346,34 @@ def main() -> int:
             f"plain {p_ms:.3f} ms")
     def check_k1_width(w: int) -> None:
         """K1 (Fr) at w lanes against the plain version: every slice of w
-        lanes of max(w, 64) fresh lanes; then timed at w lanes."""
-        a_all, b_all = rand_fe("Fr", max(w, 64)), rand_fe("Fr", max(w, 64)).flip(1).contiguous()
-        for lo in range(0, max(w, 64), w):
-            aw, bw = a_all[:, lo : lo + w].contiguous(), b_all[:, lo : lo + w].contiguous()
-            err = max_err(FK.mont_mul_flat("Fr", aw, bw), FK.mont_mul_plain("Fr", aw, bw))
-            if err:
-                raise AssertionError(f"K1 Fr at {w} lanes: kernel differs from plain")
+        lanes of max(w, 64) fresh lanes; past K1_PLAIN_LANES, 2^20 fresh
+        lanes tiled to w, each tile of the kernel's output held to the plain
+        version's on the 2^20 lanes. Then timed at w lanes."""
+        if w > K1_PLAIN_LANES:
+            n = 1 << 20
+            a, b = rand_fe("Fr", n), rand_fe("Fr", n).flip(1).contiguous()
+            ref = FK.mont_mul_plain("Fr", a, b)
+            tiles = -(-w // n)
+            aw, bw = (x.repeat(1, tiles)[:, :w].contiguous() for x in (a, b))
+            out = FK.mont_mul_flat("Fr", aw, bw)
+            for lo in range(0, w, n):
+                hi = min(lo + n, w)
+                if max_err(out[:, lo:hi], ref[:, : hi - lo]):
+                    raise AssertionError(f"K1 Fr at {w} lanes, lanes {lo}..{hi}: kernel "
+                                         "differs from plain")
+            del a, b, ref, out
+        else:
+            a_all = rand_fe("Fr", max(w, 64))
+            b_all = rand_fe("Fr", max(w, 64)).flip(1).contiguous()
+            for lo in range(0, max(w, 64), w):
+                aw, bw = a_all[:, lo : lo + w].contiguous(), b_all[:, lo : lo + w].contiguous()
+                err = max_err(FK.mont_mul_flat("Fr", aw, bw), FK.mont_mul_plain("Fr", aw, bw))
+                if err:
+                    raise AssertionError(f"K1 Fr at {w} lanes: kernel differs from plain")
         results["mont_mul"][f"ms_{w}"] = time_ms(
             torch, lambda: FK.mont_mul_flat("Fr", aw, bw), 200 if w <= 64 else 20)
+        del aw, bw
+        torch.cuda.empty_cache()
 
     # the email witness's widths and the registry Poseidon's (phase 9)
     for w in K1_WITNESS_WIDTHS + K1_POSEIDON_WIDTHS:
@@ -406,6 +452,21 @@ def main() -> int:
                           4 * r, 4 * b]
             g2_widths += [sig, r, b]
     g1_widths += PRIM_K2_WIDTHS  # phase 9's prim_bench
+
+    def level1_calls(ops, n_points: int, n_rows: int) -> list:
+        """The level-1 scan widths of a dense sort MSM over n_rows rows of
+        n_points live digits: calls of MS._rows_per_call rows, the last one
+        the rest."""
+        per_call = MS._rows_per_call(ops, n_points, MS.K_BLOCK)
+        return [level1(n_points, min(per_call, n_rows - r0))
+                for r0 in range(0, n_rows, per_call)]
+
+    # phase 10: the h MSM at 2^22 and the b2 dense fallback of full1024 and
+    # full4kb, at B = 8
+    big_rows = BIG_BATCH * nw
+    g1_widths += level1_calls(CT.FQ_OPS, BIG_H_POINTS, big_rows)
+    for dims in BIG_CONFIGS.values():
+        g2_widths += level1_calls(CT.FQ2_OPS, dims["n_signals"], big_rows)
     route_widths = {
         "mont_mul": list(K1_WITNESS_WIDTHS + K1_POSEIDON_WIDTHS),
         "ec_add_g1": list(dict.fromkeys(g1_widths)),
@@ -468,6 +529,67 @@ def main() -> int:
     del k, ref, a, b
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f} s")
+
+    # -- what the later phases share: launch counts by path, the widths a
+    # path launches each kernel at, and the check of those phase 2 did not
+    # hold to the plain versions
+    path_launches = {}
+
+    def counted(label, fn):
+        """fn() with the launch counts set to 0 just before it and read just
+        after (the device synchronized), as path_launches[label]; returns
+        (fn's result, seconds)."""
+        FK.reset_launches()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        path_launches[label] = dict(FK.LAUNCHES)
+        return out, time.time() - t
+
+    flat_fns = {"mont_mul": FK.mont_mul_flat, "ec_add_g1": FK.ec_add_g1_flat,
+                "ec_add_g2": FK.ec_add_g2_flat}
+
+    def recording_widths(seen: dict):
+        """Each wrapper records its launches' widths, seen[kernel][lanes] =
+        launches, until restore_kernels()."""
+        def wrap(name, fn):
+            def recorded(*args):
+                n = args[-1].numel() if name != "mont_mul" else args[1].shape[1]
+                seen[name][n] = seen[name].get(n, 0) + 1
+                return fn(*args)
+            return recorded
+        for name, fn in flat_fns.items():
+            setattr(FK, name + "_flat", wrap(name, fn))
+
+    def restore_kernels():
+        for name, fn in flat_fns.items():
+            setattr(FK, name + "_flat", fn)
+
+    bulk = {"mont_mul": 1 << 20, "ec_add_g1": 1 << 18, "ec_add_g2": 1 << 16}
+
+    def check_new_widths(seen: dict) -> dict:
+        """Each width in seen that no earlier check reached, held to the plain
+        version and timed, then added to route_widths. Returns the new
+        widths by kernel."""
+        new_widths = {}
+        for name, widths in seen.items():
+            new = sorted(w for w in widths if w not in route_widths[name] and w != bulk[name])
+            for w in new:
+                if name == "mont_mul":
+                    check_k1_width(w)
+                else:
+                    check_curve_width(name, w)
+            route_widths[name] += new
+            new_widths[name] = new
+        return new_widths
+
+    def keys_equal(a, b) -> bool:
+        tabs = [(u, v) for q in ARTIFACT_QUERIES for k in "xyz"
+                for u, v in zip(coords({k: getattr(a, q)[k]}), coords({k: getattr(b, q)[k]}))]
+        host = ("domain_log2", "n_public", "n_constraints", "alpha_g1", "beta_g1", "beta_g2",
+                "delta_g1", "delta_g2")
+        return (all(torch.equal(u, v) for u, v in tabs)
+                and all(getattr(a, h) == getattr(b, h) for h in host) and a.vk == b.vk)
 
     def make(dims: dict):
         t = time.time()
@@ -711,7 +833,8 @@ def main() -> int:
     _, prefixes, _ = pk.cache["signal_plan"]
     dense_adds = BATCH * len(prefixes) * cc.n_signals
     pruned_adds = BATCH * sum(prefixes)
-    log(f"  setup {t_setup:.2f} s; prove_batch {t_prove:.2f} s: proofs verify, tampered "
+    log(f"  setup {t_setup:.2f} s (the matrices already on the card: satisfied uploaded "
+        f"them); prove_batch {t_prove:.2f} s: proofs verify, tampered "
         f"public refused; timers {json.dumps(timers)}; launches "
         f"{json.dumps(email_launches)}")
     log(f"  signal plan: prefixes {list(prefixes)}; level-1 lane-adds per signal MSM "
@@ -750,18 +873,6 @@ def main() -> int:
 
     # -- 6. keys from disk at full640 --------------------------------------------
     t0 = time.time()
-    path_launches = {}
-
-    def counted(label, fn):
-        """fn() with the launch counts set to 0 just before it and read just
-        after (the device synchronized), as path_launches[label]; returns
-        (fn's result, seconds)."""
-        FK.reset_launches()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        path_launches[label] = dict(FK.LAUNCHES)
-        return out, time.time() - t
 
     def proves_as_phase5(key, label):
         """prove_batch on a loaded key (empty cache: the signal plan is
@@ -779,14 +890,6 @@ def main() -> int:
         log(f"  prove_batch on the {label} key: {t_prove:.2f} s, proofs equal phase 5's; "
             f"plan built on first use, {json.dumps(timers['plan'])}; timers "
             f"{json.dumps({k: v for k, v in timers.items() if k != 'plan'})}")
-
-    def keys_equal(a, b) -> bool:
-        tabs = [(u, v) for q in ARTIFACT_QUERIES for k in "xyz"
-                for u, v in zip(coords({k: getattr(a, q)[k]}), coords({k: getattr(b, q)[k]}))]
-        host = ("domain_log2", "n_public", "n_constraints", "alpha_g1", "beta_g1", "beta_g2",
-                "delta_g1", "delta_g2")
-        return (all(torch.equal(u, v) for u, v in tabs)
-                and all(getattr(a, h) == getattr(b, h) for h in host) and a.vk == b.vk)
 
     def dir_bytes(path) -> int:
         return sum(f.stat().st_size for f in Path(path).iterdir())
@@ -984,30 +1087,12 @@ def main() -> int:
     # -- 9. tools and registry -------------------------------------------------------
     t0 = time.time()
     seen_widths = {name: {} for name in FK.LAUNCHES}  # kernel: {lanes: launches}
-    flat_fns = {"mont_mul": FK.mont_mul_flat, "ec_add_g1": FK.ec_add_g1_flat,
-                "ec_add_g2": FK.ec_add_g2_flat}
-
-    def recording_widths():
-        """Each wrapper records its launches' widths while the tools run."""
-        def wrap(name, fn):
-            def recorded(*args):
-                n = args[-1].numel() if name != "mont_mul" else args[1].shape[1]
-                seen_widths[name][n] = seen_widths[name].get(n, 0) + 1
-                return fn(*args)
-            return recorded
-        for name, fn in flat_fns.items():
-            setattr(FK, name + "_flat", wrap(name, fn))
-
-    def restore_kernels():
-        for name, fn in flat_fns.items():
-            setattr(FK, name + "_flat", fn)
-
     tool_labels = []
 
     def tool(label, fn):
         """fn() with its kernel launches counted (phase 9's path) and its
         widths recorded; returns (fn's result, seconds)."""
-        recording_widths()
+        recording_widths(seen_widths)
         try:
             out, secs = counted(label, fn)
         finally:
@@ -1153,18 +1238,8 @@ def main() -> int:
     # the widths the tools launched each kernel at that phase 2 did not
     # check (the MSM routes' at batch 4): each against its plain version
     tools_launches = {k: sum(path_launches[lb][k] for lb in tool_labels) for k in FK.LAUNCHES}
-    bulk = {"mont_mul": 1 << 20, "ec_add_g1": 1 << 18, "ec_add_g2": 1 << 16}
     t = time.time()
-    new_widths = {}
-    for name, widths in seen_widths.items():
-        new = sorted(w for w in widths if w not in route_widths[name] and w != bulk[name])
-        for w in new:
-            if name == "mont_mul":
-                check_k1_width(w)
-            else:
-                check_curve_width(name, w)
-        route_widths[name] += new
-        new_widths[name] = new
+    new_widths = check_new_widths(seen_widths)
     missing = [k for k, v in tools_launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels not launched by phase 9's tools: {missing}")
@@ -1174,7 +1249,172 @@ def main() -> int:
         f"plain versions ({time.time() - t:.1f} s)")
     log(f"phase 9: {time.time() - t0:.1f} s")
 
-    # -- 10. results -----------------------------------------------------------
+    # -- 10. bench.py's largest circuits at bench.py's batch -----------------------
+    from zkemail_tpu_torch.models.subcircuits import long_body_email
+    from zkemail_tpu_torch.native import verifier as native
+    from zkemail_tpu_torch.prover.setup import matrix_pack
+
+    t0 = time.time()
+    big_signer = LocalDKIMSigner(seed=2029)
+    big_emails = bench_emails(big_signer, BIG_BATCH)
+    big_headers = [verify_dkim_signature(e, big_signer.resolver()).headers for e in big_emails]
+    big_seen = {name: {} for name in FK.LAUNCHES}  # kernel: {lanes: launches}
+    native.build()
+
+    def email_publics(headers: bytes) -> list:
+        """pubkeyHash, shaHi and shaLo of an email of big_signer, on the host."""
+        digest = hashlib.sha256(headers).digest()
+        return [poseidon_large(big_signer.public_key[0], 121, 9),
+                int.from_bytes(digest[:16], "big"), int.from_bytes(digest[16:], "big")]
+
+    def check_publics(label: str, w, headers: list) -> None:
+        for b, hdr in enumerate(headers):
+            got = [int(v) for v in LB.limbs_to_ints(w[:, 1:4, b])]
+            if got != email_publics(hdr):
+                raise AssertionError(f"{label}, email {b}: publics {got} differ from the host's")
+
+    def peak_gb() -> float:
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    for name, dims in BIG_CONFIGS.items():
+        t_c = time.time()
+        spec = CONFIGS[name]
+        lengths = (spec["max_headers_length"], spec["max_body_length"])
+        cfg = EmailVerifierConfig(*lengths)
+        args = InputGenArgs(max_headers_length=lengths[0], max_body_length=lengths[1])
+        t = time.time()
+        cs = build_bench_circuit(spec)
+        t_build = time.time() - t
+        t = time.time()
+        cc = cs.compile()
+        t_compile = time.time() - t
+        del cs
+        got = {"n_constraints": cc.n_constraints, "n_signals": cc.n_signals}
+        if got != dims:
+            raise AssertionError(f"{name} built with {got}, expected {dims}")
+        t = time.time()
+        raws = [generate_email_verifier_inputs(e, big_signer.resolver(), args) for e in big_emails]
+        inputs = prepare_inputs(raws, cfg, device=dev)
+        long_eml = long_body_email(big_signer, lengths[1], seed=1)
+        long_raw = generate_email_verifier_inputs(long_eml, big_signer.resolver(), args)
+        long_inputs = prepare_inputs([long_raw], cfg, device=dev)
+        long_headers = [verify_dkim_signature(long_eml, big_signer.resolver()).headers]
+        torch.cuda.synchronize()
+        t_inputs = time.time() - t
+
+        recording_widths(big_seen)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            stats = {}
+            _, t_cold = counted(f"{name}_witness_cold", lambda: cc.eval_witness(
+                inputs, BIG_BATCH, device=dev, stats=stats))
+            w, t_warm = counted(f"{name}_witness", lambda: cc.eval_witness(
+                inputs, BIG_BATCH, device=dev))
+            peak_witness = peak_gb()
+            # the matrices' first upload (host limbs of every coefficient),
+            # which satisfied and setup then find cached on the circuit
+            _, t_upload = counted(f"{name}_upload",
+                                  lambda: [matrix_pack(cc, m, w.device) for m in "ABC"])
+            ok, t_check = counted(f"{name}_satisfied", lambda: satisfied(cc, w))
+            if not bool(ok.all()):
+                raise AssertionError(f"{name}: the card's witness does not satisfy the R1CS: "
+                                     f"{ok.tolist()}")
+            check_publics(name, w, big_headers)
+            w_long, t_long = counted(f"{name}_long_witness", lambda: cc.eval_witness(
+                long_inputs, 1, device=dev))
+            if not bool(satisfied(cc, w_long).all()):
+                raise AssertionError(f"{name}: the long-body witness does not satisfy the R1CS")
+            check_publics(f"{name} long body", w_long, long_headers)
+
+            torch.cuda.reset_peak_memory_stats()
+            pk, t_setup = counted(f"{name}_setup", lambda: groth16_setup(cc, seed=5, device=dev))
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_big_setup_") as cache_dir:
+                pk_miss, t_miss = counted(f"{name}_setup_miss", lambda: groth16_setup_cached(
+                    cc, seed=5, cache_dir=cache_dir, device=dev))
+                if not keys_equal(pk_miss, pk):
+                    raise AssertionError(f"{name}: the setup cache's miss differs from setup")
+                del pk_miss
+                pk_hit, t_hit = counted(f"{name}_setup_hit", lambda: groth16_setup_cached(
+                    cc, seed=5, cache_dir=cache_dir, device=dev))
+                if not keys_equal(pk_hit, pk) or pk_hit.cache:
+                    raise AssertionError(f"{name}: the setup cache's hit differs from setup")
+                del pk_hit
+            peak_setup = peak_gb()
+            torch.cuda.empty_cache()
+
+            torch.cuda.reset_peak_memory_stats()
+            timers = {}
+            proofs, t_prove = counted(f"{name}_prove", lambda: prove_batch(
+                pk, cc, w, rng=random.Random(4), timers=timers, device=dev))
+            peak_prove = peak_gb()
+        finally:
+            restore_kernels()
+        missing = [k for k, v in path_launches[f"{name}_prove"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched by the prove: {missing}")
+
+        t = time.time()
+        for b, (proof, publics) in enumerate(proofs):
+            if publics != email_publics(big_headers[b]):
+                raise AssertionError(f"{name}, proof {b}: publics differ from the host's")
+            if not native.verify(pk.vk, proof, publics):
+                raise AssertionError(f"{name}: proof {b} does not verify (native)")
+            if native.verify(pk.vk, proof, [(publics[0] + 1) % F.R] + publics[1:]):
+                raise AssertionError(f"{name}: proof {b} verifies with a tampered public (native)")
+        t_native = time.time() - t
+        t = time.time()
+        proof, publics = proofs[0]
+        if not verify(pk.vk, proof, publics):
+            raise AssertionError(f"{name}: proof 0 does not verify (pairing oracle)")
+        if verify(pk.vk, proof, [(publics[0] + 1) % F.R] + publics[1:]):
+            raise AssertionError(f"{name}: proof 0 verifies with a tampered public (oracle)")
+        t_oracle = time.time() - t
+
+        cpu_note = ""
+        if name == "full4kb":  # the long-body witness on the card against the CPU's
+            t = time.time()
+            w_cpu = cc.eval_witness(prepare_inputs([long_raw], cfg, device="cpu"), 1,
+                                    device="cpu")
+            if not torch.equal(w_long.cpu(), w_cpu):
+                diff = int((w_long.cpu() != w_cpu).any(dim=0).any(dim=1).sum())
+                raise AssertionError(f"{name}: the long-body witness on the card differs from "
+                                     f"the CPU's at {diff} signals")
+            cpu_note = (f"; the long-body witness equals the CPU's limb for limb (CPU "
+                        f"{time.time() - t:.1f} s)")
+            del w_cpu
+
+        k1 = {k: path_launches[f"{name}_{k}"]["mont_mul"]
+              for k in ("witness", "long_witness", "setup")}
+        log(f"phase 10 {name} (B={BIG_BATCH}, 2^{pk.domain_log2} domain): {cc.n_constraints} "
+            f"constraints, {cc.n_signals} signals, {len(cc.steps)} witness steps; build "
+            f"{t_build:.2f} s, compile {t_compile:.2f} s; DKIM + inputs {t_inputs:.3f} s "
+            f"(long body {int(long_raw['emailBodyLength'])} of {lengths[1]} B)")
+        log(f"  witness on the card: cold {t_cold:.3f} s, warm {t_warm:.3f} s "
+            f"({t_warm / BIG_BATCH * 1e3:.1f} ms per email); K1 {k1['witness']}, host syncs "
+            f"{stats['syncs']}; peak {peak_witness:.2f} GB; matrices' first upload "
+            f"{t_upload:.2f} s; satisfied on the card ({t_check:.2f} s), publics equal the "
+            f"host's; long body at B=1: witness {t_long:.3f} s (K1 {k1['long_witness']}), "
+            f"satisfied, publics equal the host's{cpu_note}")
+        log(f"  setup {t_setup:.2f} s (K1 {k1['setup']}), groth16_setup_cached miss "
+            f"{t_miss:.2f} s, hit {t_hit:.2f} s, both equal the setup; peak {peak_setup:.2f} GB")
+        log(f"  prove_batch {t_prove:.2f} s: timers {json.dumps(timers)}; launches "
+            f"{json.dumps(path_launches[f'{name}_prove'])}; peak {peak_prove:.2f} GB; "
+            f"{BIG_BATCH} proofs verify natively ({t_native:.2f} s) with the host's publics, "
+            f"proof 0 under the pairing oracle ({t_oracle:.2f} s), a tampered public "
+            f"refused by both; {time.time() - t_c:.1f} s")
+        del pk, cc, w, w_long, inputs, long_inputs, proofs, ok
+        torch.cuda.empty_cache()
+
+    t = time.time()
+    big_new = check_new_widths(big_seen)
+    log(f"  widths on phase 10's path (lanes: launches) "
+        f"{json.dumps({k: dict(sorted(v.items())) for k, v in big_seen.items()})}; the "
+        f"{sum(map(len, big_new.values()))} widths no earlier check reached equal the plain "
+        f"versions ({time.time() - t:.1f} s)")
+    log(f"phase 10: {time.time() - t0:.1f} s")
+
+    # -- 11. results -----------------------------------------------------------
+    log(f"phases 1-10: {time.time() - t_start:.1f} s")
     line = {"kernels": [
         {
             "name": name,
@@ -1194,7 +1434,7 @@ def main() -> int:
             **{f"launches_{label}": path_launches[label][name]
                for label in ("key_load", "zkey_write", "zkey_read")},
             **{f"launches_{label}_prove": path_launches[f"{label}_prove"][name]
-               for label in ("full640reveal", "sha640", "rsa2048")},
+               for label in ("full640reveal", "sha640", "rsa2048", *BIG_CONFIGS)},
             "launches_sharded_prove": sharded_launches[name],
             "launches_tools": tools_launches[name],
             **{f"ms_{w}": r.get(f"ms_{w}") for w in route_widths.get(name, ())},

@@ -228,3 +228,43 @@ def test_tool_scripts_run_on_card(capsys):
     assert len(out) == 14 and all(v["s"] > 0 for v in out.values())
     printed = capsys.readouterr().out.strip().splitlines()
     assert json.loads(printed[-1]) == out
+
+
+def test_full1024_proves_on_card(dev):
+    """bench.py's full1024 (header 1024, body 1536, 2^22 domain) at B = 2 on
+    the card: two bench emails' witness satisfies the R1CS, setup and
+    prove_batch launch K1, K2 and K3, and both proofs verify under the
+    native verifier and the pairing oracle, a tampered public refused."""
+    import random
+
+    from zkemail_tpu_torch.circuits.r1cs import satisfied
+    from zkemail_tpu_torch.helpers.input_gen import InputGenArgs, generate_email_verifier_inputs
+    from zkemail_tpu_torch.helpers.testkit import LocalDKIMSigner
+    from zkemail_tpu_torch.models.email_verifier import EmailVerifierConfig
+    from zkemail_tpu_torch.models.input_bridge import prepare_inputs
+    from zkemail_tpu_torch.models.subcircuits import CONFIGS, bench_emails, build_bench_circuit
+    from zkemail_tpu_torch.native import verifier as native
+    from zkemail_tpu_torch.prover.containers import verify
+    from zkemail_tpu_torch.prover.groth16 import prove_batch
+    from zkemail_tpu_torch.prover.setup import groth16_setup
+
+    spec = CONFIGS["full1024"]
+    lengths = dict(max_headers_length=spec["max_headers_length"],
+                   max_body_length=spec["max_body_length"])
+    cc = build_bench_circuit(spec).compile()
+    signer = LocalDKIMSigner(seed=12)
+    raws = [generate_email_verifier_inputs(e, signer.resolver(), InputGenArgs(**lengths))
+            for e in bench_emails(signer, 2)]
+    w = cc.eval_witness(prepare_inputs(raws, EmailVerifierConfig(**lengths), device=dev), 2,
+                        device=dev)
+    assert bool(satisfied(cc, w).all())
+    pk = groth16_setup(cc, seed=7, device=dev)
+    assert pk.domain_log2 == 22
+    before = dict(FK.LAUNCHES)
+    proofs = prove_batch(pk, cc, w, rng=random.Random(4), device=dev)
+    assert all(FK.LAUNCHES[k] > before[k] for k in FK.LAUNCHES)
+    for i, (proof, publics) in enumerate(proofs):
+        bad = [(publics[0] + 1) % F.R] + publics[1:]
+        assert native.verify(pk.vk, proof, publics) and not native.verify(pk.vk, proof, bad)
+        if i == 0:
+            assert verify(pk.vk, proof, publics) and not verify(pk.vk, proof, bad)

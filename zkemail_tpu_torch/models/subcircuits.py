@@ -167,6 +167,29 @@ def bench_emails(signer, batch: int) -> list[bytes]:
     ]
 
 
+LONG_BODY_SLACK = 130  # bytes left free: the body's SHA-256 padding, with room
+
+
+def long_body_email(signer, max_body_length: int, seed: int = 0) -> bytes:
+    """One email signed by `signer` whose body fills most of a config's
+    `max_body_length` (that less LONG_BODY_SLACK bytes), so that the body
+    hash, the bh= regex and prepare_inputs run over real data and not over
+    padding: lines of ten words drawn from a seeded generator, single
+    spaces and no trailing whitespace, so that relaxed canonicalization
+    leaves the body as it is."""
+    rng = np.random.default_rng(seed)
+    words = np.array(["proof", "email", "batch", "field", "curve", "domain", "witness",
+                      "signal", "header", "body", "hash", "key"])
+    size = max_body_length - LONG_BODY_SLACK
+    lines, total = [], 0
+    while total < size:
+        line = " ".join(rng.choice(words, 10))
+        lines.append(line)
+        total += len(line) + 2
+    body = "\r\n".join(lines).encode()[: size - 2].rstrip(b" ") + b"\r\n"
+    return signer.sign_email(subject=f"long body {seed}", body=body)
+
+
 def subcircuit_inputs(kind: str, spec: dict, batch: int, signer, device=None) -> dict:
     """Input tensors on `device` (default: CUDA) for the sha640 ("sha",
     spec["max_len"]) and rsa2048 ("rsa") subcircuit configs: `batch`
