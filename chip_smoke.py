@@ -24,7 +24,14 @@ Builds the kernels from zkemail_tpu_torch/ops/csrc at first use, then:
      halvings) and at phase 10's largest (the h MSM's level-1 scans at
      2^22 and B = 8, the b2 dense fallback's of full1024 and full4kb), the
      widths past the bulk one as the bulk lanes tiled, each tile held to
-     the plain version's; times per launch beside the plain version's;
+     the plain version's; times per launch beside the plain version's; K4
+     ntt (forward, inverse and shifted transforms, held to ntt_plain) at
+     2^22 points and one lane (the h stage of full1024 and full4kb), at
+     2^21 (full640's), at the sharded h stage's per-rank widths (2^21 to
+     2^19 points, three lanes) and at 2^10 (phase 3's), timed at 2^22 and
+     at the sharded 2^21 and 2^20 against its bound and ntt_plain; the
+     transform widths the later phases launch are recorded, and those
+     not checked here are held to ntt_plain after phase 10;
   3. a small end-to-end run: a synthetic circuit on a 2^10 domain, setup,
      two prove_batch calls at B = 2 on one key with witnesses from two
      seeds (each signal MSM's outcome under the signal plan: hit, or miss),
@@ -179,7 +186,10 @@ INT32_PER_CLK_PER_SM = 64  # 32-bit integer add/mul/logic results, sm_90
 # additions or subtractions; K3 (the same on G2, Karatsuba Fq2 products)
 # does 42 and 108; a negated addend costs one subtraction per Fq component
 # of y, on the negated lanes only. Conversions between the interchange
-# limbs and words are left out: they are one implementation's cost.
+# limbs and words are left out: they are one implementation's cost. K4's
+# work is per butterfly ((n / 2) log2 n of them a transform of n points,
+# one product and two additions each) and its bytes per point (the limbs
+# read once and written once).
 L = 22
 OPS_MUL = 2 * 2 * 8 * 8 + 8 + 16
 OPS_ADD = 24
@@ -201,7 +211,18 @@ KERNELS = {
         "ops": 42 * OPS_MUL + 108 * OPS_ADD, "ops_neg": 2 * OPS_ADD,
         "bytes": 18 * L * 4 + 4,
     },
+    "ntt": {
+        "source": "zkemail_tpu_torch/ops/csrc/ntt_fr.cu",
+        "replaces": "none: zkemail_tpu/ops/ntt.py's stages are K1 and XLA-fused additions",
+        "ops": OPS_MUL + 2 * OPS_ADD, "ops_neg": 0, "bytes": 2 * L * 4,
+    },
 }
+# K4's widths ("points x lanes"): the h stage of full1024 and full4kb,
+# full640's, the sharded h stage's per rank on meshes of 2 and 4 "msm"
+# shards (three lanes: a, b and c), and phase 3's domain
+NTT_BULK = f"{1 << 22}x1"
+NTT_WIDTHS = (f"{1 << 21}x1", f"{1 << 21}x3", f"{1 << 20}x3", f"{1 << 19}x3", f"{1 << 10}x1")
+NTT_TIMED = (NTT_BULK, f"{1 << 21}x3", f"{1 << 20}x3")
 H_POINTS = 1 << 21  # points of the full-width h query: the 2^21 domain
 SPIN_CYCLES = 20_000_000  # about 10 ms: longer than queueing the timed calls
 
@@ -248,6 +269,7 @@ def main() -> int:
     from zkemail_tpu_torch.ops import field_kernels as FK
     from zkemail_tpu_torch.ops import kernel_build
     from zkemail_tpu_torch.ops import msm_sort as MS
+    from zkemail_tpu_torch.ops import ntt as NTT
     from zkemail_tpu_torch.ops.msm import fixed_base_batch, map_coords, msm_multi
     from zkemail_tpu_torch.prover import groth16 as G
     from zkemail_tpu_torch.prover.containers import verify
@@ -526,9 +548,61 @@ def main() -> int:
         log(f"  K {name} at " + ", ".join(
             f"{w} lanes: equal; {results[name][f'ms_{w}']:.4f} ms/launch"
             for w in route_widths[name]))
+
+    def check_ntt_width(key: str) -> None:
+        """K4's forward, inverse and shifted transforms at key ("points x
+        lanes") against ntt_plain's on the same card tensors (lanes 0..2 of
+        the flat values 0, 1 and p - 1); then the forward timed, and at
+        NTT_TIMED's widths its bound and ntt_plain's time too."""
+        n, n_lanes = map(int, key.split("x"))
+        log_n = n.bit_length() - 1
+        x = rand_fe("Fr", n * n_lanes).reshape(L, n, n_lanes)
+        kp, pp = NTT.kernel_plan(log_n, dev), NTT.plain_plan(log_n, dev)
+        err = max([max_err(NTT.ntt(x, inv, kp), NTT.ntt_plain(x, inv, pp))
+                   for inv in (False, True)]
+                  + [max_err(NTT.shifted_ntt(x, kp), NTT.shifted_ntt_plain(x, pp))])
+        if err:
+            raise AssertionError(f"K4 at {key}: kernel differs from plain (max {err})")
+        r = results.setdefault("ntt", {"max_abs_err": 0})
+        r[f"ms_{key}"] = time_ms(torch, lambda: NTT.ntt(x, False, kp), 20 if n >= 1 << 16 else 200)
+        if key in NTT_TIMED:
+            spec = KERNELS["ntt"]
+            by_ops = spec["ops"] * (n // 2) * log_n * n_lanes / int32_per_s * 1e3
+            by_bytes = spec["bytes"] * n * n_lanes / HBM_BYTES_PER_S * 1e3
+            r[f"bound_ms_{key}"] = max(by_ops, by_bytes)
+            r[f"plain_ms_{key}"] = time_ms(torch, lambda: NTT.ntt_plain(x, False, pp), 2)
+            if key == NTT_BULK:
+                r.update(lanes=n * n_lanes, ms=r[f"ms_{key}"], plain_ms=r[f"plain_ms_{key}"],
+                         bound_ms=r[f"bound_ms_{key}"],
+                         bound_by="bytes" if by_bytes >= by_ops else "operations")
+        del x, kp, pp
+        torch.cuda.empty_cache()
+
+    route_widths["ntt"] = list(NTT_WIDTHS)
+    for key in (NTT_BULK,) + NTT_WIDTHS:
+        check_ntt_width(key)
+    log("  K4 ntt (forward, inverse, shifted) at " + ", ".join(
+        f"{key} points x lanes: equal; {results['ntt'][f'ms_{key}']:.4f} ms/transform" + (
+            f" (bound {results['ntt'][f'bound_ms_{key}']:.4f}, "
+            f"{100 * results['ntt'][f'bound_ms_{key}'] / results['ntt'][f'ms_{key}']:.1f}%; "
+            f"plain {results['ntt'][f'plain_ms_{key}']:.2f})" if key in NTT_TIMED else "")
+        for key in (NTT_BULK,) + NTT_WIDTHS))
     del k, ref, a, b
     torch.cuda.empty_cache()
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f} s")
+
+    # every transform width the later phases launch K4 at (in this process),
+    # held to ntt_plain after phase 10 where phase 2 did not check it
+    ntt_seen = {}
+    ntt_kernel = NTT._ntt_kernel
+
+    def recording_ntt(values, inverse, plan, shift=False):
+        n = values.shape[1]
+        key = f"{n}x{values.numel() // (L * n)}"
+        ntt_seen[key] = ntt_seen.get(key, 0) + 1
+        return ntt_kernel(values, inverse, plan, shift)
+
+    NTT._ntt_kernel = recording_ntt
 
     # -- what the later phases share: launch counts by path, the widths a
     # path launches each kernel at, and the check of those phase 2 did not
@@ -565,7 +639,7 @@ def main() -> int:
         for name, fn in flat_fns.items():
             setattr(FK, name + "_flat", fn)
 
-    bulk = {"mont_mul": 1 << 20, "ec_add_g1": 1 << 18, "ec_add_g2": 1 << 16}
+    bulk = {"mont_mul": 1 << 20, "ec_add_g1": 1 << 18, "ec_add_g2": 1 << 16, "ntt": NTT_BULK}
 
     def check_new_widths(seen: dict) -> dict:
         """Each width in seen that no earlier check reached, held to the plain
@@ -577,6 +651,8 @@ def main() -> int:
             for w in new:
                 if name == "mont_mul":
                     check_k1_width(w)
+                elif name == "ntt":
+                    check_ntt_width(w)
                 else:
                     check_curve_width(name, w)
             route_widths[name] += new
@@ -1240,7 +1316,7 @@ def main() -> int:
     tools_launches = {k: sum(path_launches[lb][k] for lb in tool_labels) for k in FK.LAUNCHES}
     t = time.time()
     new_widths = check_new_widths(seen_widths)
-    missing = [k for k, v in tools_launches.items() if v == 0]
+    missing = [k for k, v in tools_launches.items() if v == 0 and k != "ntt"]  # no NTT here
     if missing:
         raise AssertionError(f"kernels not launched by phase 9's tools: {missing}")
     log(f"  launches on phase 9's path {json.dumps(tools_launches)}; widths (lanes: launches) "
@@ -1411,6 +1487,12 @@ def main() -> int:
         f"{json.dumps({k: dict(sorted(v.items())) for k, v in big_seen.items()})}; the "
         f"{sum(map(len, big_new.values()))} widths no earlier check reached equal the plain "
         f"versions ({time.time() - t:.1f} s)")
+    t = time.time()
+    NTT._ntt_kernel = ntt_kernel
+    ntt_new = check_new_widths({"ntt": ntt_seen})["ntt"]
+    log(f"  K4's transform widths in phases 3-10 (points x lanes: transforms) "
+        f"{json.dumps(dict(sorted(ntt_seen.items())))}; the {len(ntt_new)} phase 2 had not "
+        f"checked equal ntt_plain ({time.time() - t:.1f} s)")
     log(f"phase 10: {time.time() - t0:.1f} s")
 
     # -- 11. results -----------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, exactly.
+"""The CUDA kernels K1-K4 against their plain PyTorch versions, exactly.
 
 These need a CUDA device and nvcc (the kernels are built at first use), so
 they are marked `cuda` and skip on a machine without a card. On the card:
@@ -12,6 +12,7 @@ import torch
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu_torch.core import field as F
 from zkemail_tpu_torch.ops import field_kernels as FK
+from zkemail_tpu_torch.ops import ntt as NTT
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +87,79 @@ def test_ec_add_kernels_equal_plain(dev, group, n):
     assert FK.LAUNCHES[name] == before + 1
     for a, b in zip(_components(out, group), _components(ref, group)):
         assert torch.equal(a, b)
+
+
+def _fr_values(dev, n: int, lanes: int, gen) -> torch.Tensor:
+    """(L, n, lanes) canonical Fr limbs, the first point 0, the last p - 1
+    and, where there are three or more, the second 1."""
+    x = _rand(dev, n * lanes, gen)
+    x[:, 0] = 0
+    x[:, -1] = torch.tensor(F.to_limbs(F.R - 1), dtype=torch.int32, device=dev)
+    if n * lanes > 2:
+        x[:, 1] = 0
+        x[0, 1] = 1
+    return x.reshape(F.LIMBS, n, lanes)
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("log_n", list(range(1, 13)) + [16, 22])
+def test_ntt_kernel_equals_plain(dev, log_n, lanes):
+    """K4's forward, inverse and shifted transforms equal the plain
+    version's on the same card tensors, with one launch per pass each."""
+    gen = torch.Generator(device=dev).manual_seed(8 * log_n + lanes)
+    x = _fr_values(dev, 1 << log_n, lanes, gen)
+    kp, pp = NTT.kernel_plan(log_n, dev), NTT.plain_plan(log_n, dev)
+    before = FK.LAUNCHES["ntt"]
+    for inverse in (False, True):
+        assert torch.equal(NTT.ntt(x, inverse, kp), NTT.ntt_plain(x, inverse, pp))
+    assert torch.equal(NTT.shifted_ntt(x, kp), NTT.shifted_ntt_plain(x, pp))
+    assert FK.LAUNCHES["ntt"] - before == 3 * len(NTT.ntt_passes(log_n))
+
+
+def test_ntt_kernel_refuses_what_it_does_not_take(dev):
+    x = _fr_values(dev, 8, 1, torch.Generator(device=dev).manual_seed(3))
+    plan = NTT.domain_plan(3, dev)
+    for bad in (x[:, :1], x[:, :6], x.long(), x[:20]):
+        with pytest.raises(ValueError):
+            NTT.ntt(bad)
+    with pytest.raises(ValueError):
+        NTT.ntt(x, plan=NTT.domain_plan(4, dev))
+    with pytest.raises(ValueError):
+        NTT.ntt(x, plan={**plan, "words_fwd": plan["words_fwd"].cpu()})
+
+
+def test_h_stage_runs_k4(dev, monkeypatch):
+    """compute_h on the card: its six transforms are K4's passes, with no
+    plain addition or subtraction but the final a * b - c, and its h equals
+    the CPU's (the plain versions) limb for limb."""
+    from zkemail_tpu_torch.core import limbs as LB
+    from zkemail_tpu_torch.prover import groth16 as G
+    from zkemail_tpu_torch.prover.setup import domain_log2_for, matrix_pack
+    from zkemail_tpu_torch.scripts.synthetic_r1cs import make_circuit
+
+    circ = make_circuit(1000, 960, seed=1)
+    cc = circ.r1cs
+    log_m = domain_log2_for(cc)
+    w = torch.as_tensor(circ.witness(1, seed=2))
+
+    def h(device):
+        mats = {m: matrix_pack(cc, m, device) for m in "AB"}
+        return G.compute_h(mats, LB.to_mont(LB.FR_SPEC, w.to(device)), log_m,
+                           NTT.domain_plan(log_m, device),
+                           n_constraints=cc.n_constraints, n_public=cc.n_public)
+
+    calls = {"addm": 0, "subm": 0}
+    for name, fn in [(k, getattr(FK, k)) for k in calls]:
+        def counting(*args, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(FK, name, counting)
+    before = FK.LAUNCHES["ntt"]
+    card = h(dev)
+    assert FK.LAUNCHES["ntt"] - before == 6 * len(NTT.ntt_passes(log_m))
+    assert calls == {"addm": 0, "subm": 1}
+    monkeypatch.undo()
+    assert torch.equal(card.cpu(), h("cpu"))
 
 
 def test_witness_on_card_equals_cpu(dev):

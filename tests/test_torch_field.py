@@ -146,6 +146,19 @@ def test_field32_constants_match_field():
     assert words("G2_B3_R256_SUM") == (c0 + c1) % F.Q
 
 
+def test_fr32_constants_match_field():
+    """The constants of ops/csrc/fr32.cuh (K4's Fr on 8 x 32-bit words)
+    against the port's field module and the JAX package's."""
+    text = (CSRC / "fr32.cuh").read_text()
+    p_words = [int(re.search(rf'#define ZK_FR_P{i} "(0x[0-9a-f]+)"', text).group(1), 16)
+               for i in range(8)]
+    assert all(w < 1 << 32 for w in p_words)
+    assert sum(w << (32 * i) for i, w in enumerate(p_words)) == F.FR.p == JF.R
+    np0 = int(re.search(r"FR_NP0 = (0x[0-9a-f]+)u;", text).group(1), 16)
+    assert np0 == -pow(JF.R, -1, 1 << 32) % (1 << 32)
+    assert np0 % (1 << F.LIMB_BITS) == F.FR.n0inv
+
+
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
     a, b = _pair("Fr", 8)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)

@@ -110,6 +110,14 @@ def limbs_to_ints(limbs) -> np.ndarray:
     return out.reshape(limbs.shape[1:])
 
 
+def limbs_to_bytes(t: torch.Tensor) -> torch.Tensor:
+    """(L, n) 12-bit limbs of values below 2^256 -> (n, 32) uint8, little
+    endian: limb pairs are exact 3-byte groups."""
+    pairs = (t[0::2] | (t[1::2] << W)).T  # (n, 11), 24-bit
+    b = torch.stack([pairs & 0xFF, (pairs >> 8) & 0xFF, pairs >> 16], dim=2)
+    return b.reshape(t.shape[1], 3 * L // 2)[:, :32].to(torch.uint8)
+
+
 def to_device(limbs, device) -> torch.Tensor:
     """A limb array (numpy or tensor) as an int32 tensor on `device`."""
     if isinstance(limbs, torch.Tensor):

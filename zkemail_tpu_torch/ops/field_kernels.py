@@ -16,6 +16,10 @@ repeat those kernels' limb arithmetic (``_cios_body``, ``_ec_add_math``,
 ``_ec_add_g2_math``) on tensors, and serve both as the CPU path and as the
 reference the kernels are held to on the card.
 
+K4, the Fr NTT (``ntt_fr.cu``), is launched by ``ops/ntt.py`` through
+``_launch`` and counted in ``LAUNCHES["ntt"]``; its plain version is
+``ntt.ntt_plain``.
+
 The plain additions resolve their carries with a running max over the limb
 axis instead of the Pallas kernels' ripple: the integers, and hence the
 canonical output limbs, are the same, and a field addition costs about 20
@@ -39,8 +43,9 @@ FIELD_IDS = {"Fq": 0, "Fr": 1}
 _PRIMES = {"Fq": F.FQ, "Fr": F.FR}
 
 # Kernel launches since the last reset_launches(): each wrapper adds one
-# where it launches its kernel, and nowhere else.
-LAUNCHES = {"mont_mul": 0, "ec_add_g1": 0, "ec_add_g2": 0}
+# where it launches its kernel, and nowhere else ("ntt": K4's passes,
+# launched by ops/ntt.py through _launch).
+LAUNCHES = {"mont_mul": 0, "ec_add_g1": 0, "ec_add_g2": 0, "ntt": 0}
 
 
 def reset_launches() -> None:

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mont_mul.cu", "ec_add_g1.cu", "ec_add_g2.cu")
+SOURCES = ("mont_mul.cu", "ec_add_g1.cu", "ec_add_g2.cu", "ntt_fr.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -34,6 +34,7 @@ SIGNATURES = {
     "zk_mont_mul": [_P, _P, _P, _N, ctypes.c_int, _P],
     "zk_ec_add_g1": [_P] * 10 + [_N, _P],
     "zk_ec_add_g2": [_P] * 19 + [_N, _P],
+    "zk_ntt_pass": [_P] * 6 + [ctypes.c_int] * 3 + [_N, _P],
 }
 
 

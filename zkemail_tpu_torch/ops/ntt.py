@@ -1,8 +1,18 @@
 """Radix-2 NTT over BN254 Fr on PyTorch limb tensors.
 
-The port of ``zkemail_tpu/ops/ntt.py``: iterative Cooley-Tukey, each stage
-a reshape, one batched Montgomery multiply by the stage twiddles (K1 on the
-card) and an add/sub, over (L, n, ...) Montgomery-form values.
+The port of ``zkemail_tpu/ops/ntt.py``, over (L, n, ...) Montgomery-form
+values, dispatching on the values' device alone:
+
+* a CUDA tensor runs kernel K4 (``ops/csrc/ntt_fr.cu``): the whole
+  transform in ``len(ntt_passes(log2 n))`` launches, each counted in
+  ``field_kernels.LAUNCHES["ntt"]``, with the bit reversal folded into the
+  first pass, ``shifted_ntt``'s sigma^i scaling into the first and the
+  inverse's 1/n into the last. Its tables (``kernel_plan``) are 8 x 32-bit
+  words of w * 2^256 mod p;
+* any other tensor runs the plain version, ``ntt_plain``: iterative
+  Cooley-Tukey, each stage a reshape, one batched Montgomery multiply by the
+  stage twiddles and an add/sub. The CPU tests hold it to the JAX package,
+  and the card tests hold K4 to it.
 
 The constant tables are built without per-element Python ints: the bit
 reversal with numpy, and every table of powers (twiddles, coset and sigma
@@ -18,6 +28,8 @@ import torch
 
 from ..core import field as F
 from ..core import limbs as LB
+from . import field_kernels as FK
+from . import kernel_build
 
 L = F.LIMBS
 P = F.R
@@ -86,8 +98,8 @@ def coset_powers(log_n: int, inverse: bool, device) -> torch.Tensor:
     return powers(g, 1 << log_n, device)
 
 
-def domain_plan(log_n: int, device) -> dict:
-    """Every NTT/shift constant of one domain, on `device`."""
+def plain_plan(log_n: int, device) -> dict:
+    """Every constant of one domain for the plain version, on `device`."""
     return {
         "perm": torch.as_tensor(bit_reverse_perm(log_n), device=device),
         "tw_fwd": stage_twiddles(log_n, False, device),
@@ -97,11 +109,9 @@ def domain_plan(log_n: int, device) -> dict:
     }
 
 
-def ntt(values: torch.Tensor, inverse: bool = False, plan: dict | None = None) -> torch.Tensor:
-    """NTT/iNTT of (L, n, ...) Montgomery-form Fr values, n a power of two.
-
-    Axes after the polynomial axis are independent batch lanes. `plan`
-    (domain_plan) saves rebuilding the tables on every call."""
+def ntt_plain(values: torch.Tensor, inverse: bool = False,
+              plan: dict | None = None) -> torch.Tensor:
+    """The plain version of ntt, on any device; `plan` is a plain_plan."""
     n = values.shape[1]
     rest = tuple(values.shape[2:])
     r1 = (1,) * len(rest)
@@ -109,7 +119,7 @@ def ntt(values: torch.Tensor, inverse: bool = False, plan: dict | None = None) -
     if 1 << log_n != n:
         raise ValueError(f"NTT length {n} is not a power of two")
     if plan is None:
-        plan = domain_plan(log_n, values.device)
+        plan = plain_plan(log_n, values.device)
     tws = plan["tw_inv"] if inverse else plan["tw_fwd"]
     x = values[:, plan["perm"]]
     for s in range(log_n):
@@ -125,6 +135,118 @@ def ntt(values: torch.Tensor, inverse: bool = False, plan: dict | None = None) -
     if inverse:
         x = LB.mont_mul(FS, x, plan["ninv"].reshape((L, 1) + r1))
     return x
+
+
+# ---------------------------------------------------------------------------
+# K4: the transform on the card
+# ---------------------------------------------------------------------------
+
+PASS_STAGES = 8  # most stages a K4 pass runs (ops/csrc/ntt_fr.cu: NTT_MAX_PASS)
+WORD_SPLIT = 11  # power_words' exponent split: two tables of about 2^11
+
+
+def ntt_passes(log_n: int) -> list:
+    """(first stage, stages) of each K4 launch of a 2^log_n transform: the
+    fewest passes of at most PASS_STAGES stages, the longer ones first."""
+    count = -(-log_n // PASS_STAGES)
+    size, extra = divmod(log_n, count)
+    out, s0 = [], 0
+    for i in range(count):
+        k = size + (i < extra)
+        out.append((s0, k))
+        s0 += k
+    return out
+
+
+def power_words(base: int, idx: torch.Tensor) -> torch.Tensor:
+    """(len(idx), 8) int32: the 32-bit words, least significant first, of
+    base^i * 2^256 mod p for each i of the int64 tensor idx, on its device.
+    base^(lo + hi 2^WORD_SPLIT) is one Montgomery product of an entry of
+    base^lo (R form) and one of base^(hi 2^WORD_SPLIT) * 2^256 (that
+    table's R form times 2^256 mod p, as a plain number)."""
+    device = idx.device
+    top = int(idx.max()) >> WORD_SPLIT if idx.numel() else 0
+    lo = powers(base, 1 << WORD_SPLIT, device)
+    hi = powers(pow(base, 1 << WORD_SPLIT, P), top + 1, device)
+    to_256 = torch.tensor(F.to_limbs((1 << 256) % P), dtype=torch.int32, device=device)
+    hi = LB.mont_mul(FS, hi, to_256[:, None])
+    mask = (1 << WORD_SPLIT) - 1
+    x = LB.mont_mul(FS, lo[:, idx & mask], hi[:, idx >> WORD_SPLIT])
+    return LB.limbs_to_bytes(x).reshape(-1).view(torch.int32).reshape(-1, 8)  # little endian
+
+
+def kernel_plan(log_n: int, device) -> dict:
+    """K4's tables of one domain, on `device`, in the order its passes read
+    them: W^e * 2^256 for e < n / 2 (forward W = w, inverse W = w^-1, w the
+    primitive n-th root), sigma^i * 2^256 for i < n and n^-1 * 2^256."""
+    n = 1 << log_n
+    w = F.fr_nth_root(log_n)
+    half = torch.arange(max(n // 2, 1), device=device)
+    return {
+        "log_n": log_n,
+        "words_fwd": power_words(w, half),
+        "words_inv": power_words(pow(w, P - 2, P), half),
+        "words_ninv": power_words(pow(n, P - 2, P), torch.ones(1, dtype=torch.int64,
+                                                                device=device)),
+        "words_shift": power_words(F.fr_nth_root(log_n + 1), torch.arange(n, device=device)),
+    }
+
+
+def domain_plan(log_n: int, device) -> dict:
+    """Every NTT/shift constant of one domain, on `device`: K4's tables
+    (kernel_plan) on a CUDA device, the plain version's (plain_plan) on
+    any other."""
+    if torch.device(device).type == "cuda":
+        return kernel_plan(log_n, device)
+    return plain_plan(log_n, device)
+
+
+def _ntt_kernel(values: torch.Tensor, inverse: bool, plan: dict | None,
+                shift: bool = False) -> torch.Tensor:
+    """K4 on (L, n, ...) int32 CUDA values, n >= 2 a power of two: one
+    launch per ntt_passes entry into an output and an 8-word scratch it
+    allocates. shift scales point i by sigma^i first; inverse scales by
+    1/n last."""
+    n = values.shape[1] if values.dim() >= 2 else 0
+    log_n = n.bit_length() - 1
+    if n < 2 or 1 << log_n != n or values.dtype != torch.int32 or values.shape[0] != L:
+        raise ValueError(f"K4 takes ({L}, n, ...) int32 limbs with n >= 2 a power of "
+                         f"two, got {tuple(values.shape)} {values.dtype}")
+    if plan is None:
+        plan = kernel_plan(log_n, values.device)
+    if plan.get("log_n") != log_n:
+        raise ValueError(f"the plan is not K4's plan of a 2^{log_n} domain")
+    tables = (plan["words_inv" if inverse else "words_fwd"],
+              plan["words_shift"] if shift else None,
+              plan["words_ninv"] if inverse else None)
+    for t in tables:
+        if t is not None and (t.device != values.device or not t.is_contiguous()):
+            raise ValueError("K4's tables must be contiguous on the values' device")
+    x = values.contiguous()
+    out = torch.empty_like(x)
+    lanes = x.numel() // (L * n)
+    if lanes == 0:
+        return out
+    passes = ntt_passes(log_n)
+    scratch = (torch.empty((n * lanes, 8), dtype=torch.int32, device=x.device)
+               if len(passes) > 1 else None)
+    ptrs = [None if t is None else t.data_ptr() for t in (scratch,) + tables]
+    lib = kernel_build.library()
+    for s0, k in passes:
+        FK._launch("ntt", x.device, lib.zk_ntt_pass, x.data_ptr(), out.data_ptr(), *ptrs,
+                   log_n, s0, k, lanes, FK._stream(x))
+    return out
+
+
+def ntt(values: torch.Tensor, inverse: bool = False, plan: dict | None = None) -> torch.Tensor:
+    """NTT/iNTT of (L, n, ...) Montgomery-form Fr values, n a power of two.
+
+    Axes after the polynomial axis are independent batch lanes. `plan`
+    (domain_plan on the values' device) saves rebuilding the tables on
+    every call. A CUDA tensor runs K4 (n >= 2), any other ntt_plain."""
+    if values.device.type == "cuda":
+        return _ntt_kernel(values, inverse, plan)
+    return ntt_plain(values, inverse, plan)
 
 
 def _scale(values: torch.Tensor, pw: torch.Tensor) -> torch.Tensor:
@@ -146,12 +268,22 @@ def coset_intt(evals: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
 
 
 def shift_scale(values: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
-    """Multiply coefficient i by sigma^i (sigma^2 = omega)."""
+    """Multiply coefficient i by sigma^i (sigma^2 = omega); `plan` is a
+    plain_plan."""
     log_n = values.shape[1].bit_length() - 1
     pw = plan["shift"] if plan is not None else shift_powers(log_n, values.device)
     return _scale(values, pw)
 
 
 def shifted_ntt(coeffs: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
-    """Evaluate a coefficient vector on sigma*D (the CircomReduction domain)."""
-    return ntt(shift_scale(coeffs, plan=plan), inverse=False, plan=plan)
+    """Evaluate a coefficient vector on sigma*D (the CircomReduction domain):
+    coefficient i scaled by sigma^i, then an NTT; on a CUDA tensor K4's
+    first pass does the scaling."""
+    if coeffs.device.type == "cuda":
+        return _ntt_kernel(coeffs, False, plan, shift=True)
+    return shifted_ntt_plain(coeffs, plan)
+
+
+def shifted_ntt_plain(coeffs: torch.Tensor, plan: dict | None = None) -> torch.Tensor:
+    """The plain version of shifted_ntt, on any device; `plan` is a plain_plan."""
+    return ntt_plain(shift_scale(coeffs, plan=plan), inverse=False, plan=plan)

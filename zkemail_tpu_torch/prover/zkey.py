@@ -121,14 +121,6 @@ def _scaled(fs: LB.FieldSpec, t: torch.Tensor, power: int) -> torch.Tensor:
     return LB.mont_mul(fs, t, _const(fs, 1 << power, t.device))
 
 
-def _limbs_to_bytes(t: torch.Tensor) -> torch.Tensor:
-    """(L, n) 12-bit limbs of values below 2^256 -> (n, 32) uint8, little
-    endian: limb pairs are exact 3-byte groups."""
-    pairs = (t[0::2] | (t[1::2] << F.LIMB_BITS)).T  # (n, 11), 24-bit
-    b = torch.stack([pairs & 0xFF, (pairs >> 8) & 0xFF, pairs >> 16], dim=2)
-    return b.reshape(t.shape[1], 3 * L // 2)[:, :FE_BYTES].to(torch.uint8)
-
-
 def _bytes_to_limbs(b: torch.Tensor) -> torch.Tensor:
     """(n, 32) uint8 little endian -> (L, n) int32 12-bit limbs."""
     b = torch.nn.functional.pad(b.to(torch.int32), (0, 3 * L // 2 - FE_BYTES))
@@ -152,7 +144,7 @@ def _query_to_bytes(q: dict, kind: str) -> bytes:
     ops = CT.FQ_OPS if kind == "g1" else CT.FQ2_OPS
     aff = CT.ec_to_affine(ops, q)
     keep = ~aff["inf"]
-    cols = [_limbs_to_bytes(_scaled(LB.FQ_SPEC, c, 256) * keep)
+    cols = [LB.limbs_to_bytes(_scaled(LB.FQ_SPEC, c, 256) * keep)
             for k in ("x", "y") for c in _coords(aff[k])]
     return torch.cat(cols, dim=1).cpu().numpy().tobytes()
 
@@ -192,7 +184,7 @@ def _coeff_section(pk: ProvingKey, cc) -> bytes:
         rec["m"] = mat_id
         rec["r"] = rows.cpu().numpy()
         rec["c"] = cols.cpu().numpy()
-        rec["v"] = _limbs_to_bytes(_scaled(LB.FR_SPEC, coeff, 256)).cpu().numpy()
+        rec["v"] = LB.limbs_to_bytes(_scaled(LB.FR_SPEC, coeff, 256)).cpu().numpy()
         parts.append(rec)
     n_inst = pk.n_public + 1
     inst = np.empty(n_inst, dtype=COEFF_RECORD)

@@ -185,7 +185,7 @@ def run_meshes(prove_job: dict, n_cards: int, reference: list, vk, head: str,
     """Prove prove_job on every mesh of mesh_configs(n_cards); each mesh's
     proofs on every rank must equal `reference` (proof_keys of the single
     card's), verify under vk and refuse a tampered public, and every rank
-    must launch K1, K2 and K3. Logs one line per mesh, headed with `head`:
+    must launch every kernel, K1-K4. Logs one line per mesh, headed with `head`:
     per rank the load, the first (cold) and the last prove's seconds, the
     last prove's stage timers, launches and peak memory. Returns the
     last proves' launches summed over ranks and meshes."""
