@@ -11,8 +11,9 @@ other's files to equal limbs; ``write_zkey`` gives the JAX bytes and
 materialized instance rows); a loaded key proves what the original key
 proves under one seeded rng; garbage, corrupt chunks, stale formats and
 short or long streams are refused; ``download_chunked`` retries and caches;
-the setup cache misses, then hits with an equal key. Tolerance: exact
-equality."""
+the setup cache misses, then hits with an equal key. The JAX setup (seed 9)
+and its zkey bytes are frozen by tests/make_jax_reference.py. Tolerance:
+exact equality."""
 
 import gzip
 import json
@@ -24,11 +25,11 @@ import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.circuits.builder import ConstraintSystem as JCS
 from zkemail_tpu.prover import artifacts as JA
 from zkemail_tpu.prover import zkey as JZ
-from zkemail_tpu.prover.setup import groth16_setup as jax_setup
 from zkemail_tpu_torch.circuits.builder import ConstraintSystem as TCS
 from zkemail_tpu_torch.prover import artifacts as TA
 from zkemail_tpu_torch.prover import zkey as TZ
@@ -128,7 +129,8 @@ def ref(tmp_path_factory):
     without coefficients); the carried key, the port's circuit and the
     original key's proofs."""
     jcc = toy(JCS)
-    jpk = jax_setup(jcc, seed=9)
+    arrays, meta = JR.read("zkeytoy_key_seed9")
+    jpk = JR.key_from(arrays, meta)
     jdir = tmp_path_factory.mktemp("jax_chunks")
     manifest = JA.export_chunked(jpk, str(jdir), name="toy", n_chunks=4)
     cc = toy(TCS)
@@ -138,7 +140,7 @@ def ref(tmp_path_factory):
     pk = carry(jpk)
     w = witness(cc)
     return SimpleNamespace(jcc=jcc, jpk=jpk, jdir=jdir, manifest=manifest,
-                           zkey=JZ.write_zkey(jpk, jcc), zkey_bare=JZ.write_zkey(jpk),
+                           zkey=arrays["zkey"].tobytes(), zkey_bare=arrays["zkey_bare"].tobytes(),
                            cc=cc, pk=pk, w=w, proofs=proofs(pk, cc, w))
 
 

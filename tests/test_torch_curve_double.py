@@ -1,12 +1,13 @@
 """The port's ec_double and ec_scalar_mul_bits (core/curve_torch.py), both
 complete additions through K2/K3 (their plain versions here), against the
-JAX package's curve_jax on the CPU: affine points compared exactly."""
+JAX package's curve_jax on the CPU: affine points compared exactly (the
+JAX ec_scalar_mul_bits' frozen by tests/make_jax_reference.py)."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.core import curve_jax as CJ
 from zkemail_tpu.core import field as JF
@@ -43,8 +44,9 @@ def _to_torch(pt):
             else torch.from_numpy(np.array(v)) for k, v in pt.items()}
 
 
-def _affine_equal(port_ops, port, jax_ops, ref):
-    a, b = CT.ec_to_affine(port_ops, port), CJ.ec_to_affine(jax_ops, ref)
+def _affine_equal(port_ops, port, b):
+    """port's affine form equals b, a JAX affine point batch."""
+    a = CT.ec_to_affine(port_ops, port)
     for k in ("x", "y"):
         pairs = zip(a[k], b[k]) if isinstance(a[k], tuple) else [(a[k], b[k])]
         for x, y in pairs:
@@ -56,10 +58,14 @@ def _affine_equal(port_ops, port, jax_ops, ref):
 def test_ec_double_equals_jax(group):
     pts, jp = (_g1_points if group == "g1" else _g2_points)(5, 3)
     tops, jops = (CT.FQ_OPS, CJ.FQ_OPS) if group == "g1" else (CT.FQ2_OPS, CJ.FQ2_OPS)
-    _affine_equal(tops, CT.ec_double(tops, _to_torch(jp)), jops, CJ.ec_double(jops, jp))
+    _affine_equal(tops, CT.ec_double(tops, _to_torch(jp)),
+                  CJ.ec_to_affine(jops, CJ.ec_double(jops, jp)))
 
 
-def test_ec_scalar_mul_bits_equals_jax():
+def scalar_mul_case():
+    """6 G1 points (the last the identity) and 16-bit scalars, the first 0:
+    host points, JAX points, scalars, and their bits most significant
+    first, (16, 6)."""
     pts, jp = _g1_points(6, 4)
     rng = np.random.default_rng(5)
     nbits = 16
@@ -67,9 +73,15 @@ def test_ec_scalar_mul_bits_equals_jax():
     scalars[0] = 0
     bits = np.array([[(s >> (nbits - 1 - i)) & 1 for s in scalars] for i in range(nbits)],
                     dtype=np.int32)
+    return pts, jp, scalars, bits
+
+
+def test_ec_scalar_mul_bits_equals_jax():
+    """Against the JAX ec_scalar_mul_bits' affine points, frozen by
+    tests/make_jax_reference.py (its scan compiles for minutes here)."""
+    pts, jp, scalars, bits = scalar_mul_case()
     got = CT.ec_scalar_mul_bits(CT.FQ_OPS, _to_torch(jp), torch.from_numpy(bits))
-    _affine_equal(CT.FQ_OPS, got, CJ.FQ_OPS,
-                  CJ.ec_scalar_mul_bits(CJ.FQ_OPS, jp, jnp.asarray(bits)))
+    _affine_equal(CT.FQ_OPS, got, JR.read("ec_scalar_mul_bits_g1")[0])
     aff = CT.ec_to_affine(CT.FQ_OPS, got)
     xs, ys = CT.FQ_OPS.to_ints(aff["x"]), CT.FQ_OPS.to_ints(aff["y"])
     for i, (p, s) in enumerate(zip(pts, scalars)):

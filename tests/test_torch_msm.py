@@ -1,13 +1,16 @@
 """Port MSMs (zkemail_tpu_torch.ops.msm) against the JAX package on the CPU:
 the signed digits at the bucket route's c = 8 and the sort route's wider
 windows, the batched bucket MSM (B = 2, one scalar vector all zero,
-n % 16 != 0) and the fixed-base multiplication of the setup on G1 and G2."""
+n % 16 != 0; the JAX msm_multi's result frozen by
+tests/make_jax_reference.py) and the fixed-base multiplication of the
+setup on G1 and G2."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.core import curve_jax as CJ
 from zkemail_tpu.core import limbs as JL
@@ -49,7 +52,7 @@ def test_signed_digits_equal_jax():
 
 @pytest.mark.parametrize("c_bits", [8, 12, 13, 16])
 def test_signed_digits_wide_windows_equal_jax(c_bits):
-    """The digits of the sort route's windows (c = 13 by default): equal to
+    """The digits of the sort route's windows (c = 13 from 2^16 points up): equal to
     the JAX package's and reconstructing the scalar."""
     nw = -(-254 // c_bits)
     vals = _scalars(6, 2) + [0, 1, JL.FR_SPEC.p - 1, 1 << c_bits, (1 << (c_bits - 1)) + 1]
@@ -62,20 +65,29 @@ def test_signed_digits_wide_windows_equal_jax(c_bits):
         assert sum(int(d[k, i]) << (c_bits * k) for k in range(nw)) == v
 
 
-def test_msm_multi_equals_jax_and_host():
+def msm_multi_case():
+    """N host points, their JAX points and (L, 2, N) scalar limbs, the
+    second row all zero; and the scalars of the first."""
     rng = np.random.default_rng(7)
     pts = [G1.generator().mul(int(rng.integers(1, 10**9))) for _ in range(N)]
     jpts = JM.points_from_affine_ints(CJ.FQ_OPS, [p.x for p in pts], [p.y for p in pts], [False] * N)
+    sc = _scalars(N, 8)
+    limbs = JL.ints_to_limbs(np.array([sc, [0] * N], dtype=object))  # (L, 2, N)
+    return pts, jpts, sc, limbs
+
+
+def test_msm_multi_equals_jax_and_host():
+    """Against the JAX msm_multi's affine limbs, frozen by
+    tests/make_jax_reference.py, and against the host sum."""
+    pts, jpts, sc, limbs = msm_multi_case()
     tpts = TM.points_from_affine_ints(CT.FQ_OPS, [p.x for p in pts], [p.y for p in pts],
                                       [False] * N, "cpu")
     for k in ("x", "y", "z"):
         assert (tpts[k].numpy() == np.asarray(jpts[k])).all()
-    sc = _scalars(N, 8)
-    limbs = JL.ints_to_limbs(np.array([sc, [0] * N], dtype=object))  # (L, 2, N)
-    ref = JM.msm_multi(CJ.FQ_OPS, jpts, jnp.asarray(limbs))
+    ref = JR.read("msm_multi_n150")[1]["affine"]
     out = TM.msm_multi(CT.FQ_OPS, tpts, torch.from_numpy(limbs))
     ours = _affine_ints(CT, CT.FQ_OPS, out)
-    assert ours == _affine_ints(CJ, CJ.FQ_OPS, ref)
+    assert ours == (ref[0], ref[1])
     host = G1.identity()
     for s, p in zip(sc, pts):
         host = host.add(p.mul(s))

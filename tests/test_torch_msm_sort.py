@@ -8,7 +8,10 @@ slice, the zero vector, G2, the window-pruned MSM under a signal plan, a
 stale plan, and the bit-serial MSM with and without a plan at widths that
 are not a multiple of K. A few are held to the JAX package's msm_sorted,
 build_signal_plan, msm_sorted_pruned and msm_bitserial on the same seeded
-inputs, as affine points, exactly. Every comparison is exact equality."""
+inputs, as affine points, exactly (its msm_sorted at c = 13 frozen by
+tests/make_jax_reference.py). The window a width takes (window_bits) is 13
+at every width of the benchmark's MSMs. Every comparison is exact
+equality."""
 
 import random
 
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.core import curve_jax as CJ
 from zkemail_tpu.core import limbs as JL
@@ -141,10 +145,11 @@ def _dup_rows(n, bsz, seed):
     return rows
 
 
-@pytest.mark.parametrize("c_bits,row_chunk", [(8, 5), (8, 0)])
+@pytest.mark.parametrize("c_bits,row_chunk", [(8, 5), (8, 0), (None, 0)])
 def test_msm_sorted_equals_msm_multi_and_host(c_bits, row_chunk, monkeypatch):
     """row_chunk > 0: a memory budget of row_chunk rows per rows call, so
-    the 64 rows go in several calls."""
+    the 64 rows go in several calls; c_bits None: the window of the width
+    (window_bits)."""
     host, pts = _g1_points(48, 1, identity_at=47)
     rows = _dup_rows(48, 2, 2)
     scal = torch.from_numpy(_limbs(rows))
@@ -159,19 +164,47 @@ def test_msm_sorted_equals_msm_multi_and_host(c_bits, row_chunk, monkeypatch):
         assert _to_host(CT.FQ_OPS, TM.msm_multi(CT.FQ_OPS, pts, scal)) == want
 
 
-def test_msm_sorted_c13_equals_jax_and_host():
-    """c = 13, the route's default, against the JAX msm_sorted on the same
-    numpy inputs and against host sums."""
+def c13_case():
+    """12 points (one the identity) and one row of scalars: host points,
+    port points, scalar rows and their limbs."""
     host, pts = _g1_points(12, 3, identity_at=5)
     rows = _dup_rows(12, 1, 4)
-    limbs = _limbs(rows)
+    return host, pts, rows, _limbs(rows)
+
+
+def test_msm_sorted_c13_equals_jax_and_host():
+    """c = 13, the route's window at 2^16 points and up, against the JAX
+    msm_sorted on the same numpy inputs (as host points) and against host
+    sums."""
+    host, pts, rows, limbs = c13_case()
     got = MS.msm_sorted(CT.FQ_OPS, pts, torch.from_numpy(limbs), c_bits=13, k_block=4,
                         cutoff=4)
-    ref = JS.msm_sorted(CJ.FQ_OPS, _jax_points(pts), jnp.asarray(limbs), c_bits=13,
-                        k_block=4, cutoff=4)
+    ref = [G1.identity() if v is None else G1(*v)
+           for v in JR.read("msm_sorted_c13")[1]["points"]]
     ours = _to_host(CT.FQ_OPS, got)
-    assert ours == _jax_to_host(CJ.FQ_OPS, ref)
+    assert ours == ref
     assert ours == _host_sums(host, rows, G1.identity())
+
+
+@pytest.mark.parametrize("widths", [
+    [1 << 16], [1 << 21], [2_122_382], [3_300_638], [1 << 22], range(1, (1 << 16) + 1),
+], ids=["2^16", "2^21", "full1024_signals", "full4kb_signals", "2^22", "1..2^16"])
+def test_window_bits(widths):
+    """13 at 2^16 points and at every width the benchmark's MSMs run (the h
+    MSM's 2^21 and 2^22 points, the signal MSMs' 2,122,382 and 3,300,638);
+    from 1 to 2^16 between the smallest window msm_sorted accepts and 13,
+    never narrower as n grows."""
+    prev = MS.C_BITS_MIN
+    for n in widths:
+        c = MS.window_bits(n)
+        assert MS.C_BITS_MIN <= c <= 13 and c >= prev, (n, c)
+        if n >= 1 << 16:
+            assert c == 13, n
+        prev = c
+    _, pts = _g1_points(2, 1)
+    with pytest.raises(ValueError, match="at least"):
+        MS.msm_sorted(CT.FQ_OPS, pts, torch.zeros((F.LIMBS, 1, 2), dtype=torch.int32),
+                      c_bits=MS.C_BITS_MIN - 1)
 
 
 def test_msm_sorted_column_slices_short_last():
@@ -225,25 +258,31 @@ def test_signal_plan_equals_jax(c_bits):
     assert prefixes[0] <= 64 and prefixes[-1] < prefixes[0]
 
 
-def test_msm_sorted_pruned_equals_dense_and_jax():
-    """Pruned over the permuted points == msm_sorted over the originals ==
-    host sums == the JAX msm_sorted_pruned."""
+def pruned_case():
+    """24 G1 points and two witness-like rows under their c = 8 plan: host
+    points, points, rows, limbs, scalars, plan and the permuted points."""
     host, pts = _g1_points(24, 12)
     rows = _witness_like(24, 13)
     limbs = _limbs(rows)
     scal = torch.from_numpy(limbs)
     perm, prefixes = MS.build_signal_plan(scal, 8)
-    pts_p = _permuted(pts, perm)
+    return host, pts, rows, limbs, scal, perm, prefixes, _permuted(pts, perm)
+
+
+def test_msm_sorted_pruned_equals_dense_and_jax():
+    """Pruned over the permuted points == msm_sorted over the originals ==
+    host sums == the JAX msm_sorted_pruned (as host points, frozen by
+    tests/make_jax_reference.py)."""
+    host, pts, rows, limbs, scal, perm, prefixes, pts_p = pruned_case()
     want = _host_sums(host, rows, G1.identity())
     dense = MS.msm_sorted(CT.FQ_OPS, pts, scal, c_bits=8, k_block=4, cutoff=4)
     assert _to_host(CT.FQ_OPS, dense) == want
     got = MS.msm_sorted_pruned(CT.FQ_OPS, pts_p, scal, perm, prefixes, c_bits=8,
                                k_block=4, cutoff=4)
     assert _to_host(CT.FQ_OPS, got) == want
-    jperm = perm.numpy().astype(np.int32)
-    ref = JS.msm_sorted_pruned(CJ.FQ_OPS, _jax_points(pts_p), jnp.asarray(limbs), jperm,
-                               prefixes, c_bits=8, k_block=4)
-    assert _jax_to_host(CJ.FQ_OPS, ref) == want
+    ref = [G1.identity() if v is None else G1(*v)
+           for v in JR.read("msm_sorted_pruned_c8")[1]["points"]]
+    assert ref == want
 
 
 def test_msm_sorted_pruned_g2():
@@ -266,8 +305,8 @@ def test_stale_plan_returns_none():
     big = torch.from_numpy(_limbs([[rng.randrange(P) for _ in range(16)]]))
     perm, prefixes = MS.build_signal_plan(small, 13)
     pts_p = _permuted(pts, perm)
-    assert MS.msm_sorted_pruned(CT.FQ_OPS, pts_p, big, perm, prefixes) is None
-    assert MS.msm_bitserial(CT.FQ_OPS, pts_p, big, perm, prefixes) is None
+    assert MS.msm_sorted_pruned(CT.FQ_OPS, pts_p, big, perm, prefixes, c_bits=13) is None
+    assert MS.msm_bitserial(CT.FQ_OPS, pts_p, big, perm, prefixes, c_bits=13) is None
     with pytest.raises(ValueError, match="windows"):
         MS.msm_sorted_pruned(CT.FQ_OPS, pts_p, small, perm, prefixes, c_bits=8)
 

@@ -18,27 +18,26 @@
     a process group, over another backend than asked, or short of the
     group's ranks; resolve_device names the current card.
 
-The JAX setup runs first; the ranks then prove while the parent runs the
-JAX prove they are held to, so the file takes about the longer of the two.
-Exact equality everywhere."""
+The JAX key, witness, proofs and h_ref are the JAX package's outputs for
+fixed seeds, frozen by tests/make_jax_reference.py; the ranks prove while
+the parent runs the msm_sorted they are held to. Exact equality
+everywhere."""
 
 import concurrent.futures
 import multiprocessing
-import random
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from test_torch_prover import _port_cc, _proof_key, build_toy, carry_arrays
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.core import field as JF
 from zkemail_tpu.core import limbs as JLB
-from zkemail_tpu.ops import ntt as JNTT
 from zkemail_tpu.parallel import sharding as JS
 from zkemail_tpu.prover import groth16 as JG
-from zkemail_tpu.prover.setup import groth16_setup as jax_setup
 from zkemail_tpu_torch import device as D
 from zkemail_tpu_torch.core import curve_torch as CT
 from zkemail_tpu_torch.ops import msm_sort as MS
@@ -66,6 +65,11 @@ def _fr_mont(rng, shape):
                              ).reshape((L,) + shape)
 
 
+def h_eval_values():
+    """The sharded_h_eval input: (L, 2^LOG_M, H_BATCH) random Fr values."""
+    return _fr_mont(np.random.default_rng(3), (1 << LOG_M, H_BATCH))
+
+
 def _msm_case():
     """13 G1 points and B = 2 scalar rows: row 0 full 40-bit scalars, row 1
     mostly zero, so the rows' nonzero counts differ."""
@@ -80,11 +84,15 @@ def _msm_case():
 
 @pytest.fixture(scope="module")
 def world():
-    """The 4-rank run and its JAX references (see the module docstring)."""
+    """The 4-rank run and its JAX references (see the module docstring): the
+    JAX key (seed 42), its witness for BATCH, its proofs under
+    random.Random(42) and h_ref, JAX's shifted_ntt(ntt(x, inverse=True))."""
     cc = build_toy()
-    pk = jax_setup(cc, seed=42)
-    w = np.asarray(cc.eval_witness({"x": jnp.asarray(BATCH, dtype=jnp.int32)}, len(BATCH)))
-    x = _fr_mont(np.random.default_rng(3), (1 << LOG_M, H_BATCH))
+    pk = JR.load_key("toy_key_seed42")
+    arrays, meta = JR.read("toy_prove_seed42")
+    assert meta["xs"] == BATCH
+    w = arrays["w"]
+    x = h_eval_values()
     pts, sc = _msm_case()
     job = {
         "device": "cpu", "backend": "gloo", "meshes": MESHES, "divisible": True,
@@ -96,8 +104,8 @@ def world():
     }
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, check_job, 4, "gloo", (job,), 300.0)
-        proofs = JG.prove_batch(pk, cc, jnp.asarray(w), rng=random.Random(42))
-        h_ref = np.asarray(JNTT.shifted_ntt(JNTT.ntt(jnp.asarray(x), inverse=True)))
+        proofs = JR.proofs_from(meta["proofs"])
+        h_ref = arrays["h_ref"]
         pts_t = {k: torch.as_tensor(v) for k, v in pts.items()}
         msm_ref = affine_ints(CT.FQ_OPS, MS.msm_sorted(
             CT.FQ_OPS, pts_t, torch.as_tensor(sc), c_bits=C_BITS, k_block=K_BLOCK))

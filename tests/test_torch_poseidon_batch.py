@@ -2,21 +2,21 @@
 package on the CPU.
 
 Inputs come from numpy seeds; every comparison is exact (limbs, ints or
-affine points). poseidon_jax runs as tests/test_poseidon.py runs it (the
-JAX CPU backend, where core.limbs never takes the Pallas kernel)."""
+affine points). poseidon_jax ran as tests/test_poseidon.py runs it (the
+JAX CPU backend, where core.limbs never takes the Pallas kernel); its
+outputs are frozen by tests/make_jax_reference.py."""
 
 import random
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.core import field as JF
 from zkemail_tpu.core import limbs as JLB
 from zkemail_tpu.core.poseidon import permute, poseidon, poseidon_large
-from zkemail_tpu.core.poseidon_jax import poseidon_jax
 from zkemail_tpu_torch.core import limbs as LB
 from zkemail_tpu_torch.core import poseidon_torch as PT
 
@@ -37,7 +37,7 @@ def _mont_inputs(n, seed):
 def test_poseidon_torch_equals_jax(n):
     arr, vals = _mont_inputs(n, 10 + n)
     got = PT.poseidon_torch(torch.from_numpy(arr))
-    want = np.asarray(poseidon_jax(jnp.asarray(arr)))
+    want = JR.read("poseidon_jax_b8")[0][f"n{n}"]
     assert got.shape == (JF.LIMBS, B)
     assert (got.numpy() == want).all()
     ints = LB.limbs_to_ints(got)

@@ -13,21 +13,20 @@ circuit of tests/test_groth16_e2e.py:
   * the bucket reference (scripts/msm_routes.py::bucket_points) gives the
     same points and proofs.
 
-The JAX setup and prove run once, in a module fixture (tens of seconds on
-the CPU)."""
+The JAX package's key, witness, proofs and points are its outputs for
+fixed seeds, frozen by tests/make_jax_reference.py and read from
+tests/fixtures/jax_reference/."""
 
 import random
 from types import SimpleNamespace
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import make_jax_reference as JR
 from time_limit import time_limit  # noqa: F401  (autouse: each test under its limit)
 from zkemail_tpu.circuits.builder import ConstraintSystem
-from zkemail_tpu.prover import groth16 as JG
-from zkemail_tpu.prover.setup import groth16_setup as jax_setup
 from zkemail_tpu_torch.core import curve_torch as CT
 from zkemail_tpu_torch.ops import msm as TM
 from zkemail_tpu_torch.ops import msm_sort as MS
@@ -111,14 +110,15 @@ def _carry_pk(pk):
 
 @pytest.fixture(scope="module")
 def toy():
+    """The toy and the JAX package's outputs on it: its key (seed 42), its
+    witness for XS, and its prove_batch's proofs under random.Random(7) and
+    five pre-blinding points."""
     cc = build_toy()
-    pk = jax_setup(cc, seed=42)
-    w = np.asarray(cc.eval_witness({"x": jnp.asarray(XS, dtype=jnp.int32)}, len(XS)))
-    store = {}
-    with pytest.MonkeyPatch.context() as mp:
-        _capture(JG, "_results_to_host", mp, store)
-        proofs = JG.prove_batch(pk, cc, jnp.asarray(w), rng=random.Random(7))
-    return SimpleNamespace(cc=cc, pk=pk, w=w, proofs=proofs, points=store["_results_to_host"])
+    pk = JR.load_key("toy_key_seed42")
+    arrays, meta = JR.read("toy_prove_seed7")
+    assert meta["xs"] == XS
+    return SimpleNamespace(cc=cc, pk=pk, w=arrays["w"], proofs=JR.proofs_from(meta["proofs"]),
+                           points=JR.points_from(meta["points"]))
 
 
 @pytest.fixture(scope="module")

@@ -51,7 +51,14 @@ from ..core import field as F
 from .msm import _first, _horner_combine, concat_points, extract_signed_digits, map_coords
 
 L = F.LIMBS
+# The sort MSM's window: C_BITS_SORT from WIDE_POINTS points up (sized for
+# 2^22 on the card), C_BITS_NARROW below (window_bits). C_BITS_MIN is the
+# smallest whose signed digits carry a 254-bit scalar: at c = 2 the last
+# window's carry is lost.
 C_BITS_SORT = 13
+C_BITS_NARROW = 8
+WIDE_POINTS = 1 << 16
+C_BITS_MIN = 3
 K_BLOCK = 16
 FINAL_CUTOFF = 256
 # Level-1 working set one rows call may take: the gathered step elements,
@@ -62,7 +69,20 @@ ROWS_CALL_BYTES = 16 << 30
 POINT_BYTES = {"fq": 3 * L * 4, "fq2": 6 * L * 4}
 
 
+def window_bits(n: int) -> int:
+    """The window c of a sort MSM over n points: C_BITS_SORT from
+    WIDE_POINTS up, where every MSM of a full-size circuit lies, and
+    C_BITS_NARROW below. A narrow row pays up to 2^(c-1) threshold terms a
+    level whatever n is: on the CPU (G1, B = 2, 2^6 to 2^12 points) c = 6,
+    7 and 8 take the same time within the spread of repeated runs, and
+    c = 13 three to five times as long."""
+    return C_BITS_SORT if n >= WIDE_POINTS else C_BITS_NARROW
+
+
 def n_windows_for(c_bits: int) -> int:
+    if c_bits < C_BITS_MIN:
+        raise ValueError(f"c_bits={c_bits}: the sort MSM needs a window of at least "
+                         f"{C_BITS_MIN} bits")
     return -(-254 // c_bits)
 
 
@@ -339,7 +359,7 @@ def _rows_sum(ops, points: dict, mag: torch.Tensor, neg: torch.Tensor, K: int,
     return _put(total, live, concat_points(parts, dim=0))
 
 
-def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS_SORT,
+def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int | None = None,
                k_block: int = K_BLOCK, cutoff: int = 0, col_chunk: int = 0,
                tail: bool = True) -> dict:
     """Batched MSM with shared bases through the sort/telescope pipeline.
@@ -347,15 +367,16 @@ def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS_SO
     The contract of ops.msm.msm_multi: scalars (L, B, n) standard-form Fr
     limbs, points a projective batch (n,); returns the point batch (B,),
     or with tail=False the per-window sums (B, n_windows) before the Horner
-    combination (window j weighs 2^(c j)). col_chunk: column slice width, 0
-    for none (exact: disjoint column subsets sum to the same group
-    element); cutoff: the width at which the telescope stops (0:
-    min(2^(c-1), 256)).
+    combination (window j weighs 2^(c j)). c_bits: the window c (None:
+    window_bits(n)); col_chunk: column slice width, 0 for none (exact:
+    disjoint column subsets sum to the same group element); cutoff: the
+    width at which the telescope stops (0: min(2^(c-1), 256)).
 
     The JAX package's traced twin (``msm_sorted_traced``, for ``shard_map``
     bodies) has no counterpart: this function runs eagerly on each rank of
     a mesh (``parallel/sharding.py::sharded_sort_msm``)."""
-    bsz, _ = _check_scalars("msm_sorted", scalars, points)
+    bsz, n = _check_scalars("msm_sorted", scalars, points)
+    c_bits = c_bits or window_bits(n)
     nw = n_windows_for(c_bits)
     nb = 1 << (c_bits - 1)
     mag, neg = _digit_rows(scalars, c_bits)
@@ -377,16 +398,18 @@ def msm_sorted(ops, points: dict, scalars: torch.Tensor, c_bits: int = C_BITS_SO
 # the device and returns None on a miss, and the caller proves dense.
 
 
-def build_signal_plan(scalars: torch.Tensor, c_bits: int = C_BITS_SORT):
+def build_signal_plan(scalars: torch.Tensor, c_bits: int | None = None):
     """Signal plan from one batch of witness scalars (L, B, n), on their
     device.
 
     Returns (perm, prefixes): perm (n,) int64 orders the signals by
     descending populated-window count (stable); prefixes[j] is how many
     permuted signals have a nonzero digit at window j in some batch element
-    (a prefix, by construction). Permute the bases by perm once, and pass
-    the same plan with the unpermuted scalars of every later call."""
+    (a prefix, by construction), at window c_bits (None: window_bits(n)).
+    Permute the bases by perm once, and pass the same plan with the
+    unpermuted scalars of every later call, at the same window."""
     _, bsz, n = scalars.shape
+    c_bits = c_bits or window_bits(n)
     nw = n_windows_for(c_bits)
     mag, _ = extract_signed_digits(scalars.reshape(L, bsz * n), c_bits, nw)
     wid = torch.arange(1, nw + 1, dtype=torch.int64, device=scalars.device)
@@ -429,7 +452,7 @@ def _width_groups(widths: list) -> list:
 
 
 def msm_sorted_pruned(ops, points: dict, scalars: torch.Tensor, perm, prefixes: tuple,
-                      c_bits: int = C_BITS_SORT, k_block: int = K_BLOCK,
+                      c_bits: int | None = None, k_block: int = K_BLOCK,
                       cutoff: int = 0):
     """Window-pruned batched MSM over signal-permuted bases.
 
@@ -438,7 +461,8 @@ def msm_sorted_pruned(ops, points: dict, scalars: torch.Tensor, perm, prefixes: 
     runs over the first prefixes[j] permuted signals only, in calls that
     group rows of like width. The result equals msm_sorted(unpermuted
     points, scalars); None when the batch's digits exceed the plan."""
-    bsz, _ = _check_scalars("msm_sorted_pruned", scalars, points)
+    bsz, n = _check_scalars("msm_sorted_pruned", scalars, points)
+    c_bits = c_bits or window_bits(n)
     rows = _plan_digit_rows(scalars, perm, prefixes, c_bits)
     if rows is None:
         return None
@@ -485,7 +509,7 @@ def _bits_block(ops, points: dict, mask: torch.Tensor, negs: torch.Tensor, K: in
 
 
 def msm_bitserial(ops, points: dict, scalars: torch.Tensor, perm=None,
-                  prefixes: tuple | None = None, c_bits: int = C_BITS_SORT,
+                  prefixes: tuple | None = None, c_bits: int | None = None,
                   k_block: int = K_BLOCK):
     """Bit-serial masked-scan MSM, the contract and result of msm_sorted.
 
@@ -494,6 +518,7 @@ def msm_bitserial(ops, points: dict, scalars: torch.Tensor, perm=None,
     on a plan miss. Any width is accepted: it is padded to a multiple of
     k_block."""
     bsz, n = _check_scalars("msm_bitserial", scalars, points)
+    c_bits = c_bits or window_bits(n)
     nw = n_windows_for(c_bits)
     if prefixes is None:
         mag, neg = _digit_rows(scalars, c_bits)

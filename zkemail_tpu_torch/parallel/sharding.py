@@ -172,16 +172,18 @@ def shard_local_scalars(scal: torch.Tensor, n_pad: int, n_msm: int, idx: int) ->
 
 
 def shard_window_sums(ops, points_loc: dict, scalars: torch.Tensor, n_pad: int,
-                      n_msm: int, idx: int, c_bits: int = MS.C_BITS_SORT,
+                      n_msm: int, idx: int, c_bits: int,
                       k_block: int = MS.K_BLOCK) -> dict:
     """Shard idx's per-window sums (B, n_windows): its point slice
     points_loc (shard_local_points) against its slice of the scalars
-    (L, B, n), through msm_sorted stopped before the Horner combination."""
+    (L, B, n), through msm_sorted at window c_bits stopped before the
+    Horner combination. Every shard takes the same window: the caller's,
+    from the whole width, never from the slice's."""
     return MS.msm_sorted(ops, points_loc, shard_local_scalars(scalars, n_pad, n_msm, idx),
                          c_bits=c_bits, k_block=k_block, tail=False)
 
 
-def combine_window_sums(ops, sums: dict, group, c_bits: int = MS.C_BITS_SORT,
+def combine_window_sums(ops, sums: dict, group, c_bits: int,
                         timers: dict | None = None) -> dict:
     """This rank's per-window sums (B, n_windows) -> the MSM over every
     shard of `group`, (B,): the sums gathered and added in rank order
@@ -191,16 +193,18 @@ def combine_window_sums(ops, sums: dict, group, c_bits: int = MS.C_BITS_SORT,
 
 
 def sharded_sort_msm(mesh, ops, points: dict, scalars: torch.Tensor,
-                     c_bits: int = MS.C_BITS_SORT, k_block: int = MS.K_BLOCK) -> dict:
+                     c_bits: int | None = None, k_block: int = MS.K_BLOCK) -> dict:
     """The "msm"-sharded sort/telescope MSM: points (n,) and scalars
     (L, B, n), the same on every rank, padded to a multiple of the shard
     count (identity points, zero scalars); this rank's slice goes through
     shard_window_sums, and combine_window_sums adds the ranks' sums. The
     prover's sharded MSM stage runs the same two steps. Returns the point
-    batch (B,) on every rank."""
+    batch (B,) on every rank, at window c_bits (None: window_bits(n))."""
     S = axis_size(mesh, "msm")
     idx = mesh.get_local_rank("msm")
-    n_pad = -(-_first(points).shape[1] // S) * S
+    n = _first(points).shape[1]
+    c_bits = c_bits or MS.window_bits(n)
+    n_pad = -(-n // S) * S
     sums = shard_window_sums(ops, shard_local_points(ops, points, n_pad, S, idx), scalars,
                              n_pad, S, idx, c_bits, k_block)
     return combine_window_sums(ops, sums, mesh.get_group("msm"), c_bits)

@@ -371,17 +371,20 @@ def _msm_stage_sharded(pk: ProvingKey, mesh, w_t: torch.Tensor, h_t: torch.Tenso
     steps of parallel/sharding.py::sharded_sort_msm: the four G1 MSMs'
     sums stacked in one call, b2's in another, so the tails cost two
     chains of c * windows additions, not five. h_t is already this shard's
-    block, so the h MSM runs msm_sorted on it directly; the c MSM takes w_t[:, :, n_public + 1:] against the unpadded c
-    query."""
+    block, so the h MSM runs msm_sorted on it directly; the c MSM takes
+    w_t[:, :, n_public + 1:] against the unpadded c query. The five share
+    one window, that of the widest whole query (never of a slice), so that
+    the G1 sums stack and every rank agrees."""
     sharded = _shard_crs(mesh, pk)
     S = axis_size(mesh, "msm")
     idx = mesh.get_local_rank("msm")
+    c_bits = MS.window_bits(max(_first(getattr(pk, q)).shape[1] for q in sharded))
 
     def windows(ops, name, scal):
         q, n_pad = sharded[name]
-        return shard_window_sums(ops, q, scal, n_pad, S, idx)
+        return shard_window_sums(ops, q, scal, n_pad, S, idx, c_bits)
 
-    g1 = [MS.msm_sorted(CT.FQ_OPS, sharded["h_query"][0], h_t, tail=False)]
+    g1 = [MS.msm_sorted(CT.FQ_OPS, sharded["h_query"][0], h_t, c_bits=c_bits, tail=False)]
     mark("msm_h_s")
     g1.append(windows(CT.FQ_OPS, "a_query", w_t))
     mark("msm_a_s")
@@ -392,7 +395,7 @@ def _msm_stage_sharded(pk: ProvingKey, mesh, w_t: torch.Tensor, h_t: torch.Tenso
     g1.append(windows(CT.FQ_OPS, "c_query", w_t[:, :, pk.n_public + 1 :]))
     mark("msm_c_s")
     group = mesh.get_group("msm")
-    out = tuple(combine_window_sums(ops, sums, group, MS.C_BITS_SORT, timers)
+    out = tuple(combine_window_sums(ops, sums, group, c_bits, timers)
                 for ops, sums in ((CT.FQ_OPS, concat_points(g1, dim=0)), (CT.FQ2_OPS, b2)))
     mark("msm_tail_s")
     return out
