@@ -72,6 +72,8 @@ def test_inverses_equal_jax():
     js, ts = JL.FQ_SPEC, LB.FQ_SPEC
     ref = np.asarray(JL.inv(js, jnp.asarray(a)))
     assert (LB.inv(ts, torch.from_numpy(a)).numpy() == ref).all()
+    ladder = LB.pow_const(ts, torch.from_numpy(a), ts.p - 2)  # what K1 runs
+    assert (ladder.numpy() == ref).all()
     ref_b = np.asarray(JL.batch_inv(js, jnp.asarray(a)))
     assert (LB.batch_inv(ts, torch.from_numpy(a)).numpy() == ref_b).all()
     ref_p = np.asarray(JL.pow_const(js, jnp.asarray(a), 12345))

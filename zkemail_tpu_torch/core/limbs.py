@@ -226,8 +226,17 @@ def pow_const(fs: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def inv(fs: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """Element-wise inverse via Fermat (a^(p-2)); 0 maps to 0. Montgomery in/out."""
-    return pow_const(fs, a, fs.p - 2)
+    """Element-wise inverse; 0 maps to 0. Montgomery in/out.
+
+    A CUDA tensor runs Fermat's ladder (a^(p-2)) in K1. A CPU tensor takes
+    Python's pow on each value, as the JAX package's host path does, in
+    place of the ladder's 380-odd plain products."""
+    if a.is_cuda:
+        return pow_const(fs, a, fs.p - 2)
+    r2 = (F.MONT_R * F.MONT_R) % fs.p  # (aR)^-1 * R^2 = a^-1 * R
+    vals = limbs_to_ints(a).reshape(-1)
+    out = [pow(int(v), -1, fs.p) * r2 % fs.p if int(v) % fs.p else 0 for v in vals]
+    return torch.from_numpy(ints_to_limbs(out)).reshape(a.shape)
 
 
 def _scan_products(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
